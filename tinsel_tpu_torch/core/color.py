@@ -1,0 +1,47 @@
+"""Display transforms: luminance, gamma, filmic / Reinhard tonemap and the
+accumulation-buffer resolve (port of ``tinsel_tpu/core/color.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+GAMMA = 2.2
+
+
+def luminance(c):
+    """Reference's luminance approximation: 0.3 R + 0.6 G + 0.1 B."""
+    return 0.3 * c[..., 0] + 0.6 * c[..., 1] + 0.1 * c[..., 2]
+
+
+def linear_to_srgb(c):
+    return torch.pow(torch.clamp(c, min=0.0), 1.0 / GAMMA)
+
+
+def srgb_to_linear(c):
+    return torch.pow(torch.clamp(c, min=0.0), GAMMA)
+
+
+def tonemap_filmic(c):
+    """Hejl/Burgess-Dawson filmic curve, linearized so the final display
+    gamma (linear_to_srgb) round-trips."""
+    x = torch.clamp(c - 0.004, min=0.0)
+    ret = (x * (6.2 * x + 0.5)) / (x * (6.2 * x + 1.7) + 0.06)
+    return srgb_to_linear(ret)
+
+
+def tonemap_reinhard(c, limit=1.0):
+    lum = luminance(c)
+    return c / (1.0 + lum / limit)[..., None]
+
+
+def resolve(accum, exposure=1.0, limit=1.0, tonemap="filmic"):
+    """RGBA accumulation buffer (premultiplied color, weight in alpha) ->
+    display sRGB in [0, 1]. ``tonemap``: "filmic" or "reinhard" (where
+    ``limit`` sets the luminance shoulder)."""
+    w = torch.clamp(accum[..., 3:4], min=1e-7)
+    c = accum[..., :3] * (exposure / w)
+    if tonemap == "reinhard":
+        c = tonemap_reinhard(c, limit)
+    else:
+        c = tonemap_filmic(c)
+    return torch.clamp(linear_to_srgb(c), 0.0, 1.0)

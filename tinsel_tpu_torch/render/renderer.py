@@ -1,0 +1,139 @@
+"""Renderer front end: progressive accumulation over sample passes (port of
+``tinsel_tpu/render/renderer.py``).
+
+A pass renders ``samples_per_pass`` spp as one flat (S*H*W,) ray batch and
+returns its (H, W, 4) RGBA increment through the gather-stencil splat;
+``render`` bounds a pass at about 1M rays, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+
+import torch
+
+from ..core.math import clamp_length, lerp
+from ..core.sampling import GeneratorUniforms, Prefixed
+from ..device import resolve_device
+from ..scene.model import Options, SceneFlat
+from .camera import CameraParams, generate_rays
+from .filters import splat
+from .integrator import path_trace
+
+
+def _sample_grid(width: int, height: int, cam: CameraParams, source,
+                 spp: int = 1, sampler: str = "random"):
+    """Raster positions + shutter times: (S, H, W) tensors, plain uniform
+    jitter (the reference's active sampler)."""
+    if sampler != "random":
+        raise NotImplementedError(f"sampler={sampler!r} is ported in slice 4")
+    dev = cam.position.device
+    jitter = source.uniform((0,), (spp, height, width, 2))
+    xs = torch.arange(width, dtype=torch.float32, device=dev)[None, None, :]
+    ys = torch.arange(height, dtype=torch.float32, device=dev)[None, :, None]
+    rx = xs + jitter[..., 0]
+    ry = ys + jitter[..., 1]
+    tu = source.uniform((1,), (spp, height, width))
+    times = lerp(cam.shutter_start, cam.shutter_end, tu)
+    return rx, ry, times
+
+
+def render_pass(
+    scene: SceneFlat,
+    cam: CameraParams,
+    source,
+    *,
+    width: int,
+    height: int,
+    max_depth: int,
+    samples_per_pass: int = 1,
+    clamp: float = float("inf"),
+    filter_type: str = "gaussian",
+    filter_width: float = 0.75,
+    filter_falloff: float = 1.0,
+    mode: str = "pathtrace",
+    sampler: str = "random",
+    rr_depth: int = 0,
+    light_sampling: str = "all",
+):
+    """One pass of ``samples_per_pass`` spp -> (H, W, 4) RGBA increment.
+    ``source``: the UniformSource of the pass (the JAX pass key)."""
+    if mode != "pathtrace":
+        raise NotImplementedError(f"mode={mode!r} is ported in slice 4")
+    s = samples_per_pass
+    rx, ry, times = _sample_grid(width, height, cam, source, s, sampler)
+    raster = torch.stack([rx, ry], dim=-1).reshape(-1, 2)
+    # thin-lens draws; zero aperture ignores them
+    lens_uv = source.uniform((5,), (s, height, width, 2)).reshape(-1, 2)
+    origins, dirs = generate_rays(cam, width, height, raster, lens_uv)
+    times_flat = times.reshape(-1)
+
+    radiance = path_trace(
+        scene, origins, dirs, times_flat, max_depth, Prefixed(source, 2),
+        rr_depth=rr_depth, light_sampling=light_sampling,
+    )
+    if math.isfinite(clamp):
+        radiance = clamp_length(radiance, clamp)
+    sample_rgb = radiance.reshape(s, height, width, 3)
+    return splat(sample_rgb, rx, ry, filter_type, filter_width, filter_falloff)
+
+
+def make_render_pass(options: Options, samples_per_pass: int = 1):
+    """Bind static options; returns render_pass(scene, cam, source)."""
+    return partial(
+        render_pass,
+        width=options.width,
+        height=options.height,
+        max_depth=options.max_depth,
+        samples_per_pass=samples_per_pass,
+        clamp=options.clamp,
+        filter_type=options.filter_type,
+        filter_width=options.filter_width,
+        filter_falloff=options.filter_falloff,
+        mode=options.mode,
+        sampler=options.sampler,
+        rr_depth=options.rr_depth,
+        light_sampling=options.light_sampling,
+    )
+
+
+def make_accumulate_fn(options: Options, samples_per_pass: int = 1):
+    """(accum, scene, cam, source, pass_idx) -> accum + one pass, the pass
+    drawing under ``pass_idx`` (the JAX ``fold_in(key, pass_idx)``)."""
+    pass_fn = make_render_pass(options, samples_per_pass)
+
+    @torch.no_grad()
+    def step(accum, scene, cam, source, pass_idx: int):
+        return accum + pass_fn(scene, cam, Prefixed(source, pass_idx))
+
+    return step
+
+
+def render(scene_host, spp: int, seed: int = 0, options: Options = None,
+           samples_per_pass: int | None = None, device=None, source=None):
+    """Host loop: flatten, then accumulate ``spp`` samples in passes of at
+    most ~1M rays. Returns the (H, W, 4) accumulation buffer (resolve with
+    core.color.resolve). ``device``: None means cuda (raises without a
+    GPU). ``source``: a UniformSource; default a torch.Generator seeded
+    with ``seed`` on the device."""
+    device = resolve_device(device)
+    options = options or scene_host.options
+    flat = scene_host.flatten(device)
+    cam = CameraParams.from_host(scene_host.camera, device)
+    if source is None:
+        source = GeneratorUniforms(seed, device)
+    if samples_per_pass is None:
+        samples_per_pass = max(
+            1, min(spp, (1 << 20) // max(options.width * options.height, 1))
+        )
+    n_full, rem = divmod(spp, samples_per_pass)
+    step = make_accumulate_fn(options, samples_per_pass)
+    accum = torch.zeros(
+        (options.height, options.width, 4), dtype=torch.float32, device=device
+    )
+    for c in range(n_full):
+        accum = step(accum, flat, cam, source, c)
+    if rem:
+        accum = make_accumulate_fn(options, rem)(accum, flat, cam, source, n_full)
+    return accum

@@ -1,0 +1,436 @@
+"""Host scene model (NumPy dataclasses) and its flattening to device tensors.
+
+The port's own copy of ``tinsel_tpu/scene/model.py`` (``Scene.flatten`` at
+``:434-675``), cut to what the Cornell forward path needs: spheres, planes
+and meshes of at most 16 triangles. Such a mesh keeps the JAX padded layout
+exactly: its triangles in their original order, padded to one 16-slot block
+by repeating the last triangle, with the area CDF padded by its last value
+(1.0). Larger meshes need the BVH and raise. Probes and bump maps raise too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..accel.traverse import BLOCK_SIZE, MeshHandle, MeshPool
+from ..device import resolve_device
+
+# primitive type tags
+SPHERE = 0
+PLANE = 1
+MESH = 2
+
+
+# ---------------------------------------------------------------------- host
+
+
+@dataclasses.dataclass
+class Material:
+    """Disney BSDF material; defaults mirror the reference's."""
+
+    color: np.ndarray = field(default_factory=lambda: np.array([0.82, 0.67, 0.16], np.float32))
+    emission: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    absorption: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    eta: float = 0.0  # 0 => infer from specular
+    metallic: float = 0.0
+    subsurface: float = 0.0
+    specular: float = 0.5
+    roughness: float = 0.5
+    specular_tint: float = 0.0
+    anisotropic: float = 0.0
+    sheen: float = 0.0
+    sheen_tint: float = 0.0
+    clearcoat: float = 0.0
+    clearcoat_gloss: float = 1.0
+    transmission: float = 0.0
+    bump: float = 0.0
+    bump_tile: float = 10.0
+
+    def index_of_refraction(self) -> float:
+        if self.eta == 0.0:
+            return 2.0 / (1.0 - np.sqrt(0.08 * self.specular)) - 1.0
+        return self.eta
+
+
+@dataclasses.dataclass
+class HostTransform:
+    p: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    q: np.ndarray = field(default_factory=lambda: np.array([0, 0, 0, 1], np.float32))
+    s: float = 1.0
+
+
+@dataclasses.dataclass
+class Mesh:
+    """Host triangle mesh with vertex normals and area CDF."""
+
+    positions: np.ndarray  # (V, 3) f32
+    indices: np.ndarray  # (T, 3) i32
+    normals: Optional[np.ndarray] = None  # (V, 3) f32
+    cdf: Optional[np.ndarray] = None  # (T,) normalized area CDF
+    area: float = 0.0
+    name: str = ""
+
+    def calculate_normals(self):
+        """Area-weighted vertex normals."""
+        pos = self.positions
+        idx = self.indices
+        fn = np.cross(
+            pos[idx[:, 1]] - pos[idx[:, 0]], pos[idx[:, 2]] - pos[idx[:, 0]]
+        )
+        normals = np.zeros_like(pos)
+        np.add.at(normals, idx[:, 0], fn)
+        np.add.at(normals, idx[:, 1], fn)
+        np.add.at(normals, idx[:, 2], fn)
+        norm = np.linalg.norm(normals, axis=-1, keepdims=True)
+        self.normals = (normals / np.maximum(norm, 1e-20)).astype(np.float32)
+
+    def rebuild_cdf(self):
+        pos = self.positions
+        idx = self.indices
+        areas = 0.5 * np.linalg.norm(
+            np.cross(pos[idx[:, 1]] - pos[idx[:, 0]], pos[idx[:, 2]] - pos[idx[:, 0]]),
+            axis=-1,
+        )
+        total = float(areas.sum())
+        self.area = total
+        self.cdf = (np.cumsum(areas) / max(total, 1e-30)).astype(np.float32)
+
+    def build(self):
+        if self.normals is None or len(self.normals) != len(self.positions):
+            self.calculate_normals()
+        self.rebuild_cdf()
+
+
+@dataclasses.dataclass
+class Primitive:
+    type: int = SPHERE
+    start_transform: HostTransform = field(default_factory=HostTransform)
+    end_transform: Optional[HostTransform] = None  # None => same as start
+    radius: float = 1.0
+    plane: np.ndarray = field(default_factory=lambda: np.array([0, 1, 0, 0], np.float32))
+    mesh: Optional[Mesh] = None
+    material: Material = field(default_factory=Material)
+    light_samples: int = 0
+
+    def resolved_end(self) -> HostTransform:
+        return self.end_transform if self.end_transform is not None else self.start_transform
+
+
+@dataclasses.dataclass
+class Camera:
+    position: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    rotation: np.ndarray = field(default_factory=lambda: np.array([0, 0, 0, 1], np.float32))
+    fov: float = float(np.deg2rad(45.0))
+    shutter_start: float = 0.0
+    shutter_end: float = 1.0
+    aperture: float = 0.0  # thin-lens radius; 0 = pinhole
+    focal_distance: float = 1.0
+
+
+@dataclasses.dataclass
+class Sky:
+    horizon: np.ndarray = field(default_factory=lambda: np.array([0.0, 0.0, 0.0], np.float32))
+    zenith: np.ndarray = field(default_factory=lambda: np.array([0.0, 0.0, 0.0], np.float32))
+    probe: Optional[object] = None  # HDR probes are ported in slice 4
+
+
+@dataclasses.dataclass
+class Options:
+    """Render options: the JAX package's fields and defaults, less its
+    execution knobs (``backend``: the port has one bounce loop, which
+    stops once every path is dead; ``prng``: the JAX key type)."""
+
+    width: int = 512
+    height: int = 256
+    max_depth: int = 4
+    max_samples: int = 512
+    exposure: float = 1.0
+    limit: float = 1.5
+    clamp: float = float("inf")
+    filter_type: str = "gaussian"  # "box" | "gaussian"
+    filter_width: float = 0.75
+    filter_falloff: float = 1.0
+    mode: str = "pathtrace"
+    sampler: str = "random"
+    rr_depth: int = 0
+    light_sampling: str = "all"
+
+
+# --------------------------------------------------------------------- device
+
+
+@dataclasses.dataclass(frozen=True)
+class MaterialsFlat:
+    emission: torch.Tensor  # (M, 3)
+    color: torch.Tensor  # (M, 3)
+    absorption: torch.Tensor  # (M, 3)
+    eta: torch.Tensor  # (M,) resolved index of refraction (>0)
+    metallic: torch.Tensor
+    subsurface: torch.Tensor
+    specular: torch.Tensor
+    roughness: torch.Tensor
+    specular_tint: torch.Tensor
+    clearcoat: torch.Tensor
+    clearcoat_gloss: torch.Tensor
+    transmission: torch.Tensor
+
+    def select(self, i):
+        """Per-lane material record for index tensor i (an exact gather;
+        the JAX package uses an exact one-hot matmul)."""
+        i = i.long()
+        return MaterialsFlat(
+            **{f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)}
+        )
+
+    @classmethod
+    def from_host(cls, mats: list, device) -> "MaterialsFlat":
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        return cls(
+            emission=t(np.stack([m.emission for m in mats])),
+            color=t(np.stack([m.color for m in mats])),
+            absorption=t(np.stack([m.absorption for m in mats])),
+            eta=t([m.index_of_refraction() for m in mats]),
+            metallic=t([m.metallic for m in mats]),
+            subsurface=t([m.subsurface for m in mats]),
+            specular=t([m.specular for m in mats]),
+            roughness=t([m.roughness for m in mats]),
+            specular_tint=t([m.specular_tint for m in mats]),
+            clearcoat=t([m.clearcoat for m in mats]),
+            clearcoat_gloss=t([m.clearcoat_gloss for m in mats]),
+            transmission=t([m.transmission for m in mats]),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimsFlat:
+    """Per-primitive continuous parameters."""
+
+    start_p: torch.Tensor  # (P, 3)
+    start_q: torch.Tensor  # (P, 4)
+    start_s: torch.Tensor  # (P,)
+    end_p: torch.Tensor
+    end_q: torch.Tensor
+    end_s: torch.Tensor
+    radius: torch.Tensor  # (P,)
+    plane: torch.Tensor  # (P, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimStatic:
+    """Host-side facts about one primitive that shape the computation."""
+
+    type: int
+    mesh: Optional[MeshHandle]
+    material_index: int
+    light_samples: int
+    motion: bool = True  # start != end transform
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneFlat:
+    prims: PrimsFlat
+    materials: MaterialsFlat
+    pool: MeshPool
+    sky_horizon: torch.Tensor  # (3,)
+    sky_zenith: torch.Tensor  # (3,)
+    prim_type: torch.Tensor  # (P,) i32
+    prim_light_samples: torch.Tensor  # (P,) i32
+    prim_local_area: torch.Tensor  # (P,) f32 (sphere: 4 pi r^2; mesh: area)
+    prim_static: tuple = ()
+    light_indices: tuple = ()
+
+
+def _pad_mesh(m: Mesh):
+    """Padded triangle order of a one-block mesh: (perm_padded, real_mask,
+    root_lower, root_upper), equal to tinsel_tpu's build_wide_bvh for a
+    mesh whose binary BVH is one leaf."""
+    n_real = int(len(m.indices))
+    if n_real > BLOCK_SIZE:
+        raise NotImplementedError(
+            f"mesh {m.name!r} has {n_real} triangles: meshes above "
+            f"{BLOCK_SIZE} triangles need the BVH, which is ported in slice 3"
+        )
+    if n_real == 0:
+        raise ValueError("cannot flatten a mesh with zero triangles")
+    perm = np.arange(n_real, dtype=np.int64)
+    perm_padded = np.concatenate(
+        [perm, np.repeat(perm[n_real - 1], BLOCK_SIZE - n_real)]
+    )
+    real_mask = np.zeros(BLOCK_SIZE, bool)
+    real_mask[:n_real] = True
+    tris = m.positions[m.indices]  # (T, 3, 3)
+    root_lower = tris.min(axis=1).min(axis=0)
+    root_upper = tris.max(axis=1).max(axis=0)
+    return perm_padded, real_mask, root_lower, root_upper
+
+
+@dataclasses.dataclass
+class Scene:
+    primitives: List[Primitive] = field(default_factory=list)
+    sky: Sky = field(default_factory=Sky)
+    camera: Camera = field(default_factory=Camera)
+    options: Options = field(default_factory=Options)
+
+    def add_primitive(self, p: Primitive):
+        self.primitives.append(p)
+
+    def flatten(self, device=None) -> SceneFlat:
+        """Device tensors of the scene on ``device`` (``None``: cuda)."""
+        device = resolve_device(device)
+        if self.sky.probe is not None:
+            raise NotImplementedError("HDR probes are ported in slice 4")
+        if any(p.material.bump > 0.0 for p in self.primitives):
+            raise NotImplementedError("bump maps are ported in slice 4")
+        if not self.primitives:
+            # sky-only scene: one invisible primitive keeps every table
+            # non-empty; rays can never hit it
+            self = dataclasses.replace(
+                self,
+                primitives=[
+                    Primitive(
+                        type=SPHERE, radius=0.0,
+                        material=Material(
+                            color=np.zeros(3, np.float32),
+                            emission=np.zeros(3, np.float32),
+                        ),
+                    )
+                ],
+            )
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        # deduplicate meshes by object identity (instancing)
+        mesh_list: List[Mesh] = []
+        mesh_ids = {}
+        for prim in self.primitives:
+            if prim.type == MESH and prim.mesh is not None:
+                if id(prim.mesh) not in mesh_ids:
+                    mesh_ids[id(prim.mesh)] = len(mesh_list)
+                    mesh_list.append(prim.mesh)
+
+        handles: List[MeshHandle] = []
+        tri_arrays = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2", "cdf")}
+        tri_off = 0
+        for m in mesh_list:
+            if m.cdf is None or m.normals is None:
+                m.build()
+            perm_padded, real_mask, root_lower, root_upper = _pad_mesh(m)
+            tri_idx = m.indices[perm_padded]  # (Tp, 3) vertex ids
+            v = m.positions[tri_idx]  # (Tp, 3, 3)
+            n = m.normals[tri_idx]
+            for k in range(3):
+                tri_arrays[f"v{k}"].append(v[:, k])
+                tri_arrays[f"n{k}"].append(n[:, k])
+            # area CDF over the padded order: padding slots add zero mass
+            areas = 0.5 * np.linalg.norm(
+                np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=-1
+            )
+            areas = np.where(real_mask, areas, 0.0)
+            tri_arrays["cdf"].append(
+                (np.cumsum(areas) / max(float(areas.sum()), 1e-30)).astype(
+                    np.float32
+                )
+            )
+            n_padded = len(perm_padded)
+            handles.append(
+                MeshHandle(
+                    node_offset=len(handles),
+                    tri_offset=tri_off,
+                    num_tris=n_padded,
+                    real_tris=int(len(m.indices)),
+                    area=float(m.area),
+                    root_lower=tuple(float(x) for x in root_lower),
+                    root_upper=tuple(float(x) for x in root_upper),
+                )
+            )
+            tri_off += n_padded
+
+        def planes9(k0, k1, k2):
+            cols = []
+            for k in (k0, k1, k2):
+                a = (
+                    np.concatenate(tri_arrays[k])
+                    if tri_arrays[k]
+                    else np.zeros((1, 3), np.float32)
+                )
+                cols.extend(t(np.ascontiguousarray(a[:, i])) for i in range(3))
+            return tuple(cols)
+
+        pool = MeshPool(
+            tri_cdf=t(
+                np.concatenate(tri_arrays["cdf"]) if tri_arrays["cdf"]
+                else np.zeros((1,), np.float32)
+            ),
+            tri_planes=planes9("v0", "v1", "v2"),
+            nrm_planes=planes9("n0", "n1", "n2"),
+        )
+
+        prims = self.primitives
+        mf = MaterialsFlat.from_host([p.material for p in prims], device)
+        ends = [p.resolved_end() for p in prims]
+        pf = PrimsFlat(
+            start_p=t(np.stack([p.start_transform.p for p in prims])),
+            start_q=t(np.stack([p.start_transform.q for p in prims])),
+            start_s=t([p.start_transform.s for p in prims]),
+            end_p=t(np.stack([e.p for e in ends])),
+            end_q=t(np.stack([e.q for e in ends])),
+            end_s=t([e.s for e in ends]),
+            radius=t([p.radius for p in prims]),
+            plane=t(np.stack([p.plane for p in prims])),
+        )
+
+        prim_static = []
+        for i, p in enumerate(prims):
+            handle = None
+            if p.type == MESH and p.mesh is not None:
+                handle = handles[mesh_ids[id(p.mesh)]]
+            e = p.resolved_end()
+            st = p.start_transform
+            # q and -q are the same rotation
+            sq, eq = np.asarray(st.q), np.asarray(e.q)
+            moving = not (
+                np.array_equal(np.asarray(st.p), np.asarray(e.p))
+                and (np.array_equal(sq, eq) or np.array_equal(sq, -eq))
+                and float(st.s) == float(e.s)
+            )
+            prim_static.append(
+                PrimStatic(
+                    type=p.type,
+                    mesh=handle,
+                    material_index=i,
+                    light_samples=int(p.light_samples),
+                    motion=moving,
+                )
+            )
+
+        local_area = []
+        for p in prims:
+            if p.type == SPHERE:
+                local_area.append(4.0 * np.pi * p.radius * p.radius)
+            elif p.type == MESH and p.mesh is not None:
+                local_area.append(float(p.mesh.area))
+            else:
+                local_area.append(0.0)
+
+        return SceneFlat(
+            prims=pf,
+            materials=mf,
+            pool=pool,
+            sky_horizon=t(self.sky.horizon),
+            sky_zenith=t(self.sky.zenith),
+            prim_type=t([p.type for p in prims], torch.int32),
+            prim_light_samples=t([p.light_samples for p in prims], torch.int32),
+            prim_local_area=t(local_area),
+            prim_static=tuple(prim_static),
+            light_indices=tuple(
+                i for i, p in enumerate(prims) if p.light_samples > 0
+            ),
+        )
