@@ -8,7 +8,11 @@ Phases, each fatal on failure (exit code 1):
 1. the card: device name and ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path and a few more, timed with CUDA events;
+   shapes of the main path and a few more (K1 at 37x53, 512^2 and
+   2160x3840, r = 1 and 2; K2 at 33x49, 512^2 and 2160x3840 at r = 2, and
+   512^2 at r = 1 and 3), timed with CUDA events; each record names the
+   staging path the kernel took ("tma" or "cp.async") and its share of
+   the bound;
 4. the renderer on the card against the renderer on the CPU at equal
    draws (cornell 64x64, depth 4, 1 spp);
 5. the main path at full size: ``render`` of cornell 512x512 depth 4 at
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -49,7 +54,8 @@ MAIN_W = MAIN_H = 512
 MAIN_DEPTH = 4
 MAIN_SPP = 16
 K1_SHAPES = ((37, 53), (512, 512), (2160, 3840))  # each at r = 1 and 2
-K2_SHAPES = ((33, 49), (512, 512))  # at r = 2
+# (h, w, r): the viewer's 4K frame at the default r = 2, and r = 1 and 3
+K2_CASES = ((33, 49, 2), (512, 512, 2), (2160, 3840, 2), (512, 512, 1), (512, 512, 3))
 
 
 def fail(msg: str):
@@ -81,6 +87,25 @@ def smi_name_and_limit() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str):
+    """(kernel<template args>, registers, spill store bytes, spill load
+    bytes) of each kernel instance in nvcc's -Xptxas -v output."""
+    rows, inst, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d(nlm_[a-z]+_kernel)I((?:Li\d+E)+)E", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            inst = f"{m.group(1)}<{','.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst is not None:
+            rows.append((inst, int(m.group(1)), *spills))
+            inst, spills = None, (0, 0)
+    return rows
 
 
 # ------------------------------------------------------------ kernel bounds
@@ -182,9 +207,10 @@ def device_ms(fn, arg_sets, budget_s: float = 0.2) -> float:
 # ------------------------------------------------------- kernels vs plain
 
 
-def check_kernel(name, kernel_fn, plain_fn, inputs, work, tag, counts):
+def check_kernel(ops_nlm, name, kernel_fn, plain_fn, inputs, work, tag):
     """Run the kernel and its plain version on the same card inputs, hold
     them within KERNEL_TOL, time both; returns the result record."""
+    counts = ops_nlm.launch_counts
     before = counts[name]
     out = kernel_fn(*inputs)
     torch.cuda.synchronize()
@@ -203,7 +229,9 @@ def check_kernel(name, kernel_fn, plain_fn, inputs, work, tag, counts):
     rec = dict(
         kernel=name, shape=tag, max_abs_err=err, kernel_ms=kernel_ms,
         kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, launches=counts[name] - before, library_ms=None,
+        bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+        staging=ops_nlm.last_geometry[name].path,
+        launches=counts[name] - before, library_ms=None,
     )
     emit(rec)
     if not err <= KERNEL_TOL:
@@ -213,20 +241,19 @@ def check_kernel(name, kernel_fn, plain_fn, inputs, work, tag, counts):
 
 def kernel_phase(ops_nlm, plain, dev):
     rng = np.random.default_rng(0)
-    counts = ops_nlm.launch_counts
     worst = {"nlm_filter": 0.0, "nlm_guided": 0.0}
     for (h, w) in K1_SHAPES:
         img = torch.from_numpy(rng.random((h, w, 3), dtype=np.float32)).to(dev)
         for r in (1, 2):
             rec = check_kernel(
-                "nlm_filter",
+                ops_nlm, "nlm_filter",
                 lambda x, r=r: ops_nlm.nlm_filter_cuda(x, 200.0, r),
                 lambda x, r=r: plain.nlm_filter(x, 200.0, r),
-                (img,), nlm_filter_work(h, w, r), f"{h}x{w} r={r}", counts,
+                (img,), nlm_filter_work(h, w, r), f"{h}x{w} r={r}",
             )
             worst["nlm_filter"] = max(worst["nlm_filter"], rec["max_abs_err"])
         del img
-    for (h, w) in K2_SHAPES:
+    for (h, w, r) in K2_CASES:
         normal = rng.normal(size=(h, w, 3)).astype(np.float32)
         normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
         x = [
@@ -236,12 +263,13 @@ def kernel_phase(ops_nlm, plain, dev):
         ]
         x = tuple(torch.from_numpy(a).to(dev) for a in x)
         rec = check_kernel(
-            "nlm_guided",
-            lambda *a: ops_nlm.nlm_guided_cuda(*a, falloff=40.0),
-            lambda *a: plain.nlm_guided(*a, falloff=40.0),
-            x, nlm_guided_work(h, w, 2), f"{h}x{w} r=2", counts,
+            ops_nlm, "nlm_guided",
+            lambda *a, r=r: ops_nlm.nlm_guided_cuda(*a, falloff=40.0, radius=r),
+            lambda *a, r=r: plain.nlm_guided(*a, falloff=40.0, radius=r),
+            x, nlm_guided_work(h, w, r), f"{h}x{w} r={r}",
         )
         worst["nlm_guided"] = max(worst["nlm_guided"], rec["max_abs_err"])
+        del x
     return worst
 
 
@@ -406,15 +434,14 @@ def main_inputs_phase(ops_nlm, plain, img, aov):
     """Each kernel against its plain version on the main path's own
     inputs (these launches are not counted as the main path's)."""
     h, w = img.shape[:2]
-    counts = ops_nlm.launch_counts
     k1 = check_kernel(
-        "nlm_filter", ops_nlm.nlm_filter_cuda, plain.nlm_filter, (img,),
-        nlm_filter_work(h, w, 1), f"main {h}x{w} r=1", counts,
+        ops_nlm, "nlm_filter", ops_nlm.nlm_filter_cuda, plain.nlm_filter, (img,),
+        nlm_filter_work(h, w, 1), f"main {h}x{w} r=1",
     )
     guides = (img, aov["normal"], aov["albedo"], aov["depth"])
     k2 = check_kernel(
-        "nlm_guided", ops_nlm.nlm_guided_cuda, plain.nlm_guided, guides,
-        nlm_guided_work(h, w, 2), f"main {h}x{w} r=2", counts,
+        ops_nlm, "nlm_guided", ops_nlm.nlm_guided_cuda, plain.nlm_guided, guides,
+        nlm_guided_work(h, w, 2), f"main {h}x{w} r=2",
     )
     return k1, k2
 
@@ -441,8 +468,11 @@ def main():
     build_s = time.perf_counter() - t0
     for name, (secs, log) in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "error" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
+        for inst, regs, spill_st, spill_ld in ptxas_summary(log):
+            print(f"ptxas[{name}]: {inst}: {regs} registers, {spill_st} B spill stores, "
+                  f"{spill_ld} B spill loads", flush=True)
     emit(dict(phase="build", seconds=build_s, sources=list(_build.SOURCES)))
 
     worst = kernel_phase(ops_nlm, plain, dev)
@@ -464,7 +494,8 @@ def main():
             replaces=replaces, launches=launches[key],
             max_abs_err=max(worst[key], rec["max_abs_err"]),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
-            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None,
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            bound_share=rec["bound_share"], library_ms=None,
         ))
     print(smi, flush=True)
     emit({"kernels": table})

@@ -39,32 +39,123 @@ def _guides(rng, h, w):
     return img, normal, albedo, depth
 
 
+def _on_card(a: np.ndarray, dev, offset: int = 0) -> torch.Tensor:
+    """``a`` on the card; ``offset`` floats past an aligned base, so that
+    a nonzero offset leaves the data 16-byte misaligned (cp.async path)."""
+    buf = torch.empty(a.size + offset, dtype=torch.float32, device=dev)
+    t = buf[offset:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+# (shape, radius, falloff, misaligned floats, staging path). TMA takes
+# widths that are multiples of 4 on aligned bases; the rest is cp.async.
+# r = 1..3 run the compiled-radius search (interior tiles where the image
+# has them, edge tiles always), r = 0 and 5 and a negative falloff the
+# runtime-r search; r = 8 needs a single stage of shared memory. Images
+# with fewer tiles than the card has CTA slots run K1 with 8 warps of 4
+# rows, larger ones with 4 warps of 8 rows.
+K1_CASES = [
+    ((37, 53), 1, 200.0, 0, "cp.async"),
+    ((37, 53), 2, 200.0, 0, "cp.async"),
+    ((512, 512), 1, 200.0, 0, "tma"),
+    ((1, 5), 3, 200.0, 0, "cp.async"),
+    ((64, 128), 0, 200.0, 0, "tma"),
+    ((96, 160), 2, 200.0, 0, "tma"),
+    ((96, 160), 3, 200.0, 0, "tma"),
+    ((70, 77), 3, 200.0, 0, "cp.async"),
+    ((100, 132), 5, 200.0, 0, "tma"),
+    ((45, 64), 8, 200.0, 0, "tma"),
+    ((64, 64), 1, 200.0, 1, "cp.async"),
+    ((33, 40), 1, -5.0, 0, "tma"),
+    ((2160, 3840), 1, 200.0, 0, "tma"),
+    # more tiles than CTA slots: the 8-rows-a-thread shape
+    ((1100, 1000), 3, 200.0, 0, "tma"),
+    ((1100, 999), 2, 200.0, 0, "cp.async"),
+    ((1100, 1000), 5, 200.0, 0, "tma"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape,radius", [((37, 53), 1), ((37, 53), 2), ((512, 512), 1), ((1, 5), 3)]
-)
-def test_nlm_filter_kernel_matches_plain(cuda, shape, radius):
-    img = torch.from_numpy(
-        np.random.default_rng(0).random((*shape, 3)).astype(np.float32)
-    ).to(cuda)
+@pytest.mark.parametrize("shape,radius,falloff,offset,path", K1_CASES)
+def test_nlm_filter_kernel_matches_plain(cuda, shape, radius, falloff, offset, path):
+    a = np.random.default_rng(0).random((*shape, 3)).astype(np.float32)
+    img = _on_card(a, cuda, offset)
     before = ops.launch_counts["nlm_filter"]
-    out = ops.nlm_filter_cuda(img, 200.0, radius)
+    out = ops.nlm_filter_cuda(img, falloff, radius)
     torch.cuda.synchronize()
     assert ops.launch_counts["nlm_filter"] == before + 1
-    ref = plain.nlm_filter(img, 200.0, radius)
+    assert ops.last_geometry["nlm_filter"].path == path
+    ref = plain.nlm_filter(img, falloff, radius)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+# (shape, falloff, radius, guide factors, depth all zeros, misaligned
+# floats, staging path)
+K2_CASES = [
+    ((33, 49), 40.0, 2, (8.0, 50.0, 1.0), False, 0, "cp.async"),
+    ((512, 512), 200.0, 2, (8.0, 50.0, 1.0), False, 0, "tma"),
+    ((64, 96), 40.0, 1, (8.0, 50.0, 1.0), False, 0, "tma"),
+    ((70, 45), 40.0, 3, (8.0, 50.0, 1.0), False, 0, "cp.async"),
+    ((96, 128), 40.0, 3, (8.0, 50.0, 1.0), False, 0, "tma"),
+    ((40, 64), 40.0, 5, (8.0, 50.0, 1.0), False, 0, "tma"),
+    ((48, 64), 40.0, 2, (8.0, 50.0, 1.0), True, 0, "tma"),
+    ((64, 64), 40.0, 2, (8.0, 50.0, 1.0), False, 3, "cp.async"),
+    ((40, 44), 40.0, 2, (8.0, 50.0, -1.0), False, 0, "tma"),
+    ((1, 5), 40.0, 2, (8.0, 50.0, 1.0), False, 0, "cp.async"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,falloff,radius,factors,flat_depth,offset,path", K2_CASES
+)
+def test_nlm_guided_kernel_matches_plain(cuda, shape, falloff, radius, factors,
+                                         flat_depth, offset, path):
+    arrays = list(_guides(np.random.default_rng(3), *shape))
+    if flat_depth:  # max depth 0: the kernel divides by the 1e-6 clamp
+        arrays[3] = np.zeros_like(arrays[3])
+    x = [_on_card(a, cuda, offset) for a in arrays]
+    kw = dict(falloff=falloff, radius=radius, f_normal=factors[0],
+              f_albedo=factors[1], f_depth=factors[2])
+    before = ops.launch_counts["nlm_guided"]
+    out = ops.nlm_guided_cuda(*x, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["nlm_guided"] == before + 1
+    assert ops.last_geometry["nlm_guided"].path == path
+    ref = plain.nlm_guided(*x, **kw)
     assert float((out - ref).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,falloff", [((33, 49), 40.0), ((512, 512), 200.0)])
-def test_nlm_guided_kernel_matches_plain(cuda, shape, falloff):
-    x = [torch.from_numpy(a).to(cuda) for a in _guides(np.random.default_rng(3), *shape)]
-    before = ops.launch_counts["nlm_guided"]
-    out = ops.nlm_guided_cuda(*x, falloff=falloff)
-    torch.cuda.synchronize()
-    assert ops.launch_counts["nlm_guided"] == before + 1
-    ref = plain.nlm_guided(*x, falloff=falloff)
-    assert float((out - ref).abs().max()) <= 1e-5
+def test_nlm_guided_kernel_propagates_a_nan_depth(cuda):
+    """One NaN depth makes max(depth) NaN; the plain version then returns
+    NaN everywhere, and so must the kernel."""
+    arrays = list(_guides(np.random.default_rng(4), 40, 64))
+    arrays[3][7, 11, 0] = np.nan
+    x = [_on_card(a, cuda) for a in arrays]
+    out = ops.nlm_guided_cuda(*x, falloff=40.0, radius=2)
+    ref = plain.nlm_guided(*x, falloff=40.0, radius=2)
+    assert bool(torch.isnan(ref).all())
+    assert bool(torch.isnan(out).all())
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_card(cuda):
+    """Each card needs its own shared-memory opt-in: launch on the first
+    card, then on the second while the first stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    arrays = _guides(np.random.default_rng(6), 64, 96)
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        x = [_on_card(a, dev) for a in arrays]
+        with torch.cuda.device(0):
+            out1 = ops.nlm_filter_cuda(x[0], 200.0, 2)
+            out2 = ops.nlm_guided_cuda(*x, falloff=40.0, radius=2)
+        assert out1.device == out2.device == dev
+        assert float((out1 - plain.nlm_filter(x[0], 200.0, 2)).abs().max()) <= 1e-5
+        ref2 = plain.nlm_guided(*x, falloff=40.0, radius=2)
+        assert float((out2 - ref2).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda

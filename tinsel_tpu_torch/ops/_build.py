@@ -3,8 +3,11 @@
 Each source ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The hash covers the source and the flags, so an edited
-source is rebuilt; a finished library is reused. Nothing is compiled when
-the package is imported: the first launch builds, or ``build_all`` does.
+source is rebuilt; a finished library is reused.
+The TMA tensor maps are encoded by libcuda's cuTensorMapEncodeTiled,
+reached through the CUDA runtime's entry-point query, so nothing links
+against libcuda. Nothing is compiled when the package is imported: the
+first launch builds, or ``build_all`` does.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu

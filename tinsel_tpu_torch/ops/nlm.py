@@ -1,18 +1,20 @@
 """CUDA NLM denoiser kernels and their dispatchers.
 
-``nlm_filter_cuda`` (kernel K1, ``csrc/nlm.cu`` ``tinsel_nlm_filter``)
-replaces the Pallas kernel ``tinsel_tpu/ops/pallas/nlm.py:44
-_nlm_band_kernel``; ``nlm_guided_cuda`` (K2, ``tinsel_nlm_guided``)
-replaces ``_guided_band_kernel`` (``nlm.py:199``). Both keep the JAX
+``nlm_filter_cuda`` (kernel K1, ``csrc/nlm.cu``) replaces the Pallas
+kernel ``tinsel_tpu/ops/pallas/nlm.py:44 _nlm_band_kernel``;
+``nlm_guided_cuda`` (K2, same source) replaces
+``_guided_band_kernel`` (``nlm.py:199``). Both keep the JAX
 signatures and the (H, W, C) layout.
 
 Bound and design: each kernel reads its inputs once and writes three
-planes. K1 at its default r = 1 is bounded by device-memory bytes (~8 f32
-operations per byte); K2 at its default r = 2 sits where bytes and f32
-operations take about equal time. One CTA per 32x8 output tile stages the
-tile and its halo in shared memory, computes the box means there and then
-the weighted sums, so the (2r+1)^2 shifted copies of the plain version
-never reach device memory (see the note in ``csrc/nlm.cu``).
+planes; K1 at its default r = 1 is bounded by device-memory bytes, K2 at
+r = 2 by f32 operations. What the card spends is instructions per pixel,
+so a CTA computes a 32x32 tile with each thread walking a column strip
+and reusing every staged value across the taps that need it; staging is
+by TMA where the widths allow it and by ``cp.async`` elsewhere (see the
+note in ``csrc/nlm.cu``). ``launch_geometry`` below picks the
+tile, the grid, the shared memory and the staging path; the C side checks
+it against its own layout.
 
 A CPU tensor runs the plain version (``render/nlm.py``); a CUDA tensor
 launches the kernel or raises. There is no backward kernel (the Pallas
@@ -24,6 +26,8 @@ as ``jax.custom_vjp`` does in the JAX package (``nlm.py:173-177``,
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +37,8 @@ from . import _build
 # Launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else.
 launch_counts = {"nlm_filter": 0, "nlm_guided": 0}
+# The geometry of each kernel's latest launch (staging path and all).
+last_geometry: dict = {}
 
 
 def reset_launch_counts():
@@ -40,19 +46,127 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
-_typed_lib: list = []  # the loaded library, argtypes set
+# ------------------------------------------------------------ geometry
+# Mirrors csrc/nlm.cu: TX, TY, make_layout, and the (threads, minimum CTAs
+# per SM of __launch_bounds__) of each kernel shape. K1's first shape (8
+# rows a thread) reuses staged values more; its second (4 rows, twice the
+# warps) serves images with fewer tiles than the card has CTA slots.
+
+TILE_W = TILE_H = 32
+SHAPES = {"nlm_filter": ((128, 4), (256, 2)), "nlm_guided": ((256, 2),)}
+SMEM_MAX = 232_448  # dynamic shared memory a CTA may use (H100)
+_SM_SMEM, _CTA_RESERVED = 233_472, 1024  # per SM, and reserved per CTA
+_TMA_BOX_MAX = 256  # elements per box dimension
 
 
-def _lib():
-    if not _typed_lib:
-        lib = _build.load("nlm")
+class Geometry(NamedTuple):
+    tile_w: int
+    tile_h: int
+    threads: int
+    stages: int  # 2: the next tile's loads overlap this tile's compute
+    grid: int  # persistent CTAs, each walking tiles grid apart
+    tiles: int
+    smem: int  # dynamic shared-memory bytes
+    path: str  # "tma" or "cp.async"
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _align128(b: int) -> int:
+    return (b + 127) & ~127
+
+
+def _staged(kernel: str, r: int):
+    """(channels, halo) of each staged input, in the kernel's order."""
+    if kernel == "nlm_filter":
+        return ((3, 2 * r),)
+    return ((3, r + 1), (3, r), (3, r), (1, r))
+
+
+def _boxes(kernel: str, r: int):
+    """(rows, pitch in floats) of each staged input: its TMA box. A box
+    starts on a 16-byte boundary, so a row begins (-C * halo) % 4 floats
+    before the halo."""
+    return [
+        (TILE_H + 2 * halo, _round4((-ch * halo) % 4 + ch * (TILE_W + 2 * halo)))
+        for ch, halo in _staged(kernel, r)
+    ]
+
+
+def _smem_bytes(kernel: str, r: int, stages: int) -> int:
+    stage = sum(_align128(rows * pitch * 4) for rows, pitch in _boxes(kernel, r))
+    means = _align128((TILE_H + 2 * r) * 3 * (TILE_W + 2 * r) * 4)
+    return 256 + stages * stage + means
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(kernel: str, h: int, w: int, radius: int, aligned: bool = True,
+                    num_sms: int = 132) -> Geometry:
+    """Launch geometry of ``kernel`` ("nlm_filter" or "nlm_guided") for an
+    (h, w) image at search radius ``radius``. ``aligned``: every input's
+    base address is a multiple of 16 bytes. TMA needs that and row strides
+    (4 * C * w bytes) that are multiples of 16, i.e. w % 4 == 0, and boxes
+    of at most 256 elements a side; anything else stages by cp.async."""
+    if kernel not in SHAPES:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if h < 1 or w < 1 or radius < 0:
+        raise ValueError(f"bad shape or radius: {h}x{w}, r={radius}")
+    two = _smem_bytes(kernel, radius, 2)
+    stages = 2 if 2 * (two + _CTA_RESERVED) <= _SM_SMEM else 1
+    smem = _smem_bytes(kernel, radius, stages)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"{kernel}: radius {radius} needs {smem} B of shared memory per "
+            f"CTA; the card allows {SMEM_MAX}"
+        )
+    tma = (
+        aligned and w % 4 == 0
+        and all(rows <= _TMA_BOX_MAX and pitch <= _TMA_BOX_MAX
+                for rows, pitch in _boxes(kernel, radius))
+    )
+    tiles = -(-w // TILE_W) * -(-h // TILE_H)
+
+    def ctas_per_sm(threads, min_ctas):
+        return min(2048 // threads, _SM_SMEM // (smem + _CTA_RESERVED), min_ctas)
+
+    shapes = SHAPES[kernel]
+    threads, min_ctas = shapes[0]
+    if tiles <= num_sms * ctas_per_sm(threads, min_ctas):
+        threads, min_ctas = shapes[-1]
+    grid = max(1, min(tiles, num_sms * ctas_per_sm(threads, min_ctas)))
+    return Geometry(TILE_W, TILE_H, threads, stages, grid, tiles, smem,
+                    "tma" if tma else "cp.async")
+
+
+# ------------------------------------------------------------- launch
+
+_typed_libs: dict = {}  # kernel -> its loaded C entry point, argtypes set
+_sms: dict = {}  # device index -> multiprocessor count
+
+
+def _entry(kernel: str):
+    fn = _typed_libs.get(kernel)
+    if fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tinsel_nlm_filter.argtypes = [p, p, i, i, f, i, p]
-        lib.tinsel_nlm_filter.restype = i
-        lib.tinsel_nlm_guided.argtypes = [p, p, p, p, p, i, i, f, i, f, f, f, p]
-        lib.tinsel_nlm_guided.restype = i
-        _typed_lib.append(lib)
-    return _typed_lib[0]
+        geo = [i] * 7  # tile_w, tile_h, threads, stages, grid, smem, tma
+        if kernel == "nlm_filter":
+            fn = _build.load("nlm").tinsel_nlm_filter
+            fn.argtypes = [p, p, i, i, f, i, *geo, p]
+        else:
+            fn = _build.load("nlm").tinsel_nlm_guided
+            fn.argtypes = [p, p, p, p, p, p, i, i, f, i, f, f, f, *geo, p]
+        fn.restype = i
+        _typed_libs[kernel] = fn
+    return fn
+
+
+def _num_sms(dev: torch.device) -> int:
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _check(t: torch.Tensor, name: str, shape):
@@ -71,10 +185,29 @@ def _check_image(img: torch.Tensor):
         raise ValueError(f"expected an (H, W, 3) image, got {tuple(img.shape)}")
 
 
-def _launched(err: int, kernel: str):
+_C_ERRORS = {9001: "launch geometry rejected by the kernel",
+             9002: "cuTensorMapEncodeTiled is not available"}
+
+
+def _launched(err: int, kernel: str, geo: Geometry):
     if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+        what = _C_ERRORS.get(err) or (
+            f"tensor map encode failed (CUresult {err - 9100})" if err >= 9100
+            else f"CUDA error {err}"
+        )
+        raise RuntimeError(f"{kernel} kernel launch failed: {what} ({geo})")
     launch_counts[kernel] += 1
+    last_geometry[kernel] = geo
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """Call the C entry point on ``dev``'s current stream; the device
+    context is switched only when ``dev`` is not already current."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def _nlm_filter_kernel(img, falloff: float, radius: int):
@@ -83,14 +216,14 @@ def _nlm_filter_kernel(img, falloff: float, radius: int):
     if radius < 0:
         raise ValueError("radius must be >= 0")
     h, w = img.shape[:2]
+    geo = launch_geometry("nlm_filter", h, w, int(radius), img.data_ptr() % 16 == 0,
+                          _num_sms(img.device))
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().tinsel_nlm_filter(
-            img.data_ptr(), out.data_ptr(), h, w, float(falloff), int(radius),
-            stream,
-        )
-    _launched(err, "nlm_filter")
+    err = _launch(
+        img.device, _entry("nlm_filter"), img.data_ptr(), out.data_ptr(), h, w,
+        float(falloff), int(radius), *geo[:5], geo.smem, geo.path == "tma",
+    )
+    _launched(err, "nlm_filter", geo)
     return out
 
 
@@ -104,18 +237,19 @@ def _nlm_guided_kernel(img, normal, albedo, depth, falloff, radius, f_normal,
     _check(depth, "depth", (h, w, 1))
     if radius < 0:
         raise ValueError("radius must be >= 0")
-    # the global max is a reduction over the whole image: a torch op before
-    # the launch, as the JAX package does before its pallas_call (:294)
-    dn = (depth / torch.clamp(torch.max(depth), min=1e-6)).contiguous()
+    ptrs = [t.data_ptr() for t in (img, normal, albedo, depth)]
+    geo = launch_geometry("nlm_guided", h, w, int(radius),
+                          all(p % 16 == 0 for p in ptrs), _num_sms(img.device))
+    # the global max is a reduction over the whole image, as the JAX package
+    # takes it before its pallas_call (:294); the kernel divides by it
+    dmax = torch.amax(depth)
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().tinsel_nlm_guided(
-            img.data_ptr(), normal.data_ptr(), albedo.data_ptr(), dn.data_ptr(),
-            out.data_ptr(), h, w, float(falloff), int(radius), float(f_normal),
-            float(f_albedo), float(f_depth), stream,
-        )
-    _launched(err, "nlm_guided")
+    err = _launch(
+        img.device, _entry("nlm_guided"), *ptrs, dmax.data_ptr(), out.data_ptr(),
+        h, w, float(falloff), int(radius), float(f_normal), float(f_albedo),
+        float(f_depth), *geo[:5], geo.smem, geo.path == "tma",
+    )
+    _launched(err, "nlm_guided", geo)
     return out
 
 
