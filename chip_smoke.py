@@ -19,7 +19,19 @@ Phases, each fatal on failure (exit code 1):
    16 spp, ``resolve`` -> ``nlm_denoise`` (kernel K1) and ``render_aovs``
    -> ``nlm_guided_denoise`` (kernel K2), with the kernels' launch counts
    reset just before and read just after; then the trace/shading split of
-   one render pass.
+   one render pass;
+6. the BVH walks K3 (closest hit) and K4 (any hit) against their plain
+   versions on the card: the 524k-triangle sphere with 65,536 parallel
+   rays, envmesh's first diffuse bounce and many_mesh's instance batch
+   (per-lane offsets), each captured from a render pass on the card;
+7. big meshes: envmesh on the card against the CPU at equal draws, then
+   the big-mesh forward path (envmesh 512x512 depth 4 at 16 spp,
+   many_mesh 512x512 depth 2, instances16 512x512 depth 3) with K3/K4's
+   counts reset just before and read just after;
+8. the gradient step (``render_loss_and_grads``) on cornell and envmesh
+   512x512 depth 4: card against CPU at equal draws at 64x64, peak
+   memory, the fwd+bwd / fwd ratio at matched spp and the backward's top
+   kernels; then 10 steps of the inverse-rendering trainer at 512x512.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -28,6 +40,7 @@ beside this file, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -56,6 +69,19 @@ MAIN_SPP = 16
 K1_SHAPES = ((37, 53), (512, 512), (2160, 3840))  # each at r = 1 and 2
 # (h, w, r): the viewer's 4K frame at the default r = 2, and r = 1 and 3
 K2_CASES = ((33, 49, 2), (512, 512, 2), (2160, 3840, 2), (512, 512, 1), (512, 512, 3))
+BIG_W = BIG_H = 512
+# (name, depth, spp) of the big-mesh forward path
+BIG_SCENES = (("envmesh", 4, 16), ("many_mesh", 2, 4), ("instances16", 3, 4))
+GRAD_TOL = 1e-3  # card vs CPU gradients at equal draws, normalized per leaf
+# the walks' bound: bytes of a node row (72 f32) and a leaf block (192
+# f32), rays in (o, d, tmax: 28 B), per-lane offsets (8 B); f32 operations
+# of one child slab test (6 sub, 6 mul, 6 min/max, 3 max for the entry, 2
+# min for the exit, 2 compares) and one triangle test (two-sided
+# Moller-Trumbore: 9 sub for the edges and the origin offset, 2 cross
+# products of 9, 4 dots of 5, abs, reciprocal, 3 scales, 6 compares and
+# the u + v add)
+NODE_BYTES, BLOCK_BYTES, RAY_BYTES, OFFSET_BYTES = 288, 768, 28, 8
+SLAB_OPS, TRI_OPS = 25, 59
 
 
 def fail(msg: str):
@@ -90,21 +116,26 @@ def smi_name_and_limit() -> str:
 
 
 def ptxas_summary(log: str):
-    """(kernel<template args>, registers, spill store bytes, spill load
-    bytes) of each kernel instance in nvcc's -Xptxas -v output."""
-    rows, inst, spills = [], None, (0, 0)
+    """(kernel<template args>, registers, stack frame bytes, spill store
+    bytes, spill load bytes) of each kernel instance in nvcc's -Xptxas -v
+    output. A BVH walk's per-thread stack lives in its stack frame."""
+    rows, inst, frame = [], None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d(nlm_[a-z]+_kernel)I((?:Li\d+E)+)E", line)
         if m:
             args = re.findall(r"Li(\d+)E", m.group(2))
             inst = f"{m.group(1)}<{','.join(args)}>"
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"Compiling entry function '\w*?\d(bvh_[a-z]+_kernel)E", line)
         if m:
-            spills = (int(m.group(1)), int(m.group(2)))
+            inst = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and inst is not None:
-            rows.append((inst, int(m.group(1)), *spills))
-            inst, spills = None, (0, 0)
+            rows.append((inst, int(m.group(1)), *frame))
+            inst, frame = None, (0, 0, 0)
     return rows
 
 
@@ -446,6 +477,406 @@ def main_inputs_phase(ops_nlm, plain, img, aov):
     return k1, k2
 
 
+# --------------------------------------------------------- BVH walks (K3/K4)
+
+
+def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int):
+    """(bytes, f32 operations) of one walk, counted from the plain walk on
+    the same inputs: each node row and leaf block the walk reads, read
+    once, and each lane's ray (and offsets) in and result out; 16 slab
+    tests a node arrival, 16 triangle tests a block test. Also the bytes
+    if every arrival and block test read its row from device memory
+    (``visit_bytes``: what a walk without any cache would move)."""
+    lane = lanes * (RAY_BYTES + (OFFSET_BYTES if per_lane else 0) + out_bytes)
+    nbytes = (int(stats["node_rows"].sum()) * NODE_BYTES
+              + int(stats["block_rows"].sum()) * BLOCK_BYTES + lane)
+    visit_bytes = stats["visits"] * NODE_BYTES + stats["blocks"] * BLOCK_BYTES + lane
+    ops = 16 * (stats["visits"] * SLAB_OPS + stats["blocks"] * TRI_OPS)
+    return (nbytes, ops), visit_bytes
+
+
+class CaptureWalks:
+    """Records the arguments of every K3/K4 wrapper call made by the
+    renderer while active (tensors cloned), to replay the main path's own
+    inputs."""
+
+    def __init__(self, ops_bvh):
+        self.ops, self.calls = ops_bvh, {"closest_hit": [], "any_hit": []}
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.ops, k) for k in self.calls}
+        for k, fn in self.orig.items():
+            def wrapped(*a, _k=k, _fn=fn):
+                self.calls[_k].append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+                return _fn(*a)
+            setattr(self.ops, k, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.ops, k, fn)
+
+
+def check_walk(ops_bvh, plain_walk, name, args, tag):
+    """One walk kernel against its plain version on the same card inputs
+    (K3: equal t to KERNEL_TOL and no differing triangle; K4: no differing
+    lane), timed; returns the record."""
+    pool, noff, toff, o, d, tmax, slots = args
+    kernel = ops_bvh.closest_hit_cuda if name == "bvh_closest" else ops_bvh.any_hit_cuda
+    before = ops_bvh.launch_counts[name]
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    launches = ops_bvh.launch_counts[name] - before
+    if launches != 1:
+        fail(f"{name} {tag}: the wrapper did not count its launch")
+    stats = {}
+    ref = plain_walk(pool, noff, toff, o, d, tmax, stack_slots=slots, stats=stats)
+    lanes = o.shape[0]
+    if name == "bvh_closest":
+        (t, tri), (t_ref, tri_ref) = out, ref
+        mismatched = int((tri != tri_ref).sum())
+        same_inf = torch.equal(torch.isfinite(t), torch.isfinite(t_ref))
+        fin = torch.isfinite(t_ref)
+        err = float((t - t_ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+        err = err if same_inf else float("inf")
+        hit_share = float(fin.float().mean())
+    else:
+        mismatched = int((out != ref).sum())
+        err = float(mismatched > 0)
+        hit_share = float(ref.float().mean())
+    per_lane = torch.is_tensor(noff)
+
+    def run_plain():
+        plain_walk(pool, noff, toff, o, d, tmax, stack_slots=slots)
+
+    kernel_ms = device_ms(kernel, [args])
+    kernel_call_ms = call_ms(kernel, [args])
+    plain_ms = _event_ms(run_plain, 2)
+    work, visit_bytes = bvh_work(stats, lanes, per_lane, 8 if name == "bvh_closest" else 1)
+    bound_ms, bound_by = bound(work)
+    rec = dict(
+        kernel=name, shape=tag, lanes=lanes, per_lane_offsets=per_lane,
+        hit_share=hit_share, mismatched=mismatched, max_abs_err=err,
+        kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+        mrays_per_s=lanes / kernel_ms / 1e3, visits_per_lane=stats["visits"] / lanes,
+        blocks_per_lane=stats["blocks"] / lanes,
+        rows_read=[int(stats["node_rows"].sum()), int(stats["block_rows"].sum())],
+        visit_traffic_ms=visit_bytes / HBM_BYTES_PER_S * 1e3, launches=launches,
+        library_ms=None,
+    )
+    emit(rec)
+    if mismatched or not err <= KERNEL_TOL:
+        fail(f"{name} {tag}: kernel differs from the plain version ({mismatched} lanes, {err})")
+    return rec
+
+
+def sphere_workload(dev):
+    """The JAX package's bench workload (bench.py:378-401): a UV sphere of
+    512 x 512 x 2 = 524,288 triangles and 65,536 parallel rays from
+    z = -3 on a 256 x 256 grid over [-1.2, 1.2]^2."""
+    from tinsel_tpu_torch.scene.model import MESH, Primitive, Scene
+    from tinsel_tpu_torch.scene.procedural import sphere
+
+    t0 = time.perf_counter()
+    m = sphere(radius=1.0, n_theta=512, n_phi=512)
+    m.build()
+    sc = Scene()
+    sc.add_primitive(Primitive(type=MESH, mesh=m))
+    flat = sc.flatten(dev)
+    build_s = time.perf_counter() - t0
+    h = flat.prim_static[0].mesh
+    g = np.linspace(-1.2, 1.2, 256, dtype=np.float32)
+    x, y = np.meshgrid(g, g)
+    r = 256 * 256
+    o = torch.from_numpy(np.stack([x.ravel(), y.ravel(), np.full(r, -3.0, np.float32)], -1)).to(dev)
+    d = torch.tensor([[1e-5, 1e-5, 1.0]], device=dev).repeat(r, 1)
+    tmax = torch.full((r,), float("inf"), device=dev)
+    emit(dict(phase="sphere524k", triangles=h.real_tris, nodes=h.num_nodes,
+              stack_slots=h.stack_slots, host_build_s=build_s))
+    return (flat.pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
+
+
+def bvh_kernel_phase(dev):
+    """K3 and K4 against their plain versions on three inputs: the 524k
+    sphere, envmesh's first diffuse bounce (captured from a 512x512 pass)
+    and many_mesh's instance batches (captured from a 512x512 pass: the
+    shortlist rounds' lanes with per-lane offsets; the NEE shadow rays)."""
+    from tinsel_tpu_torch.accel import traverse as plain
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+    from tinsel_tpu_torch.scene.presets import envmesh_scene, many_mesh_scene
+
+    inputs = {"sphere524k": {"closest": sphere_workload(dev)}}
+    for name, sc in (("envmesh", envmesh_scene(BIG_W, BIG_H, 4)),
+                     ("many_mesh", many_mesh_scene(48, BIG_W, BIG_H, 2))):
+        flat = sc.flatten(dev)
+        cam = CameraParams.from_host(sc.camera, dev)
+        with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
+            make_render_pass(sc.options)(flat, cam, GeneratorUniforms(9, dev))
+        closest, anyh = cap.calls["closest_hit"], cap.calls["any_hit"]
+        if name == "envmesh":  # bounce 1: the first diffuse bounce
+            inputs[name] = {"closest": closest[1]}
+        else:
+            inputs[name] = {"closest": closest[0], "any": anyh[0]}
+    recs = {"bvh_closest": [], "bvh_any": []}
+    for tag, ins in inputs.items():
+        for kernel in ("bvh_closest", "bvh_any"):
+            # each kernel runs on the closest-hit inputs, K4 also on the
+            # shadow rays where the scene has them
+            args = ins["closest"] if kernel == "bvh_closest" else ins.get("any", ins["closest"])
+            what = "shadow rays" if kernel == "bvh_any" and "any" in ins else "rays"
+            walk = plain.intersect_mesh if kernel == "bvh_closest" else plain.intersect_mesh_any
+            recs[kernel].append(check_walk(ops_bvh, walk, kernel, args, f"{tag} {what}"))
+    return recs
+
+
+# ---------------------------------------------------------- big meshes
+
+
+def big_scenes():
+    from tinsel_tpu_torch.scene.presets import envmesh_scene, instances_scene, many_mesh_scene
+
+    makers = {
+        "envmesh": lambda d: envmesh_scene(BIG_W, BIG_H, d),
+        "many_mesh": lambda d: many_mesh_scene(48, BIG_W, BIG_H, d),
+        "instances16": lambda d: instances_scene(BIG_W, BIG_H, d, grid=4),
+    }
+    return {name: makers[name](depth) for name, depth, _ in BIG_SCENES}
+
+
+def bigmesh_equal_draw_phase(dev):
+    """envmesh (detail 32: 2,048 triangles) on the card and on the CPU at
+    equal draws, 64x64 depth 4, 1 spp."""
+    from tinsel_tpu_torch.core.sampling import NumpyUniforms
+    from tinsel_tpu_torch.render.renderer import render
+    from tinsel_tpu_torch.scene.presets import envmesh_scene
+
+    a, b = (
+        render(envmesh_scene(64, 64, 4, detail=32), spp=1, device=d,
+               source=NumpyUniforms(7, d)).cpu().numpy()
+        for d in (dev, torch.device("cpu"))
+    )
+    if a.shape != (64, 64, 4) or not np.isfinite(a).all():
+        fail("equal-draw envmesh render on the card: bad output")
+    close = np.isclose(a, b, atol=RENDER_ATOL, rtol=RENDER_RTOL).all(axis=-1)
+    rel = abs(a[..., :3].mean() - b[..., :3].mean()) / b[..., :3].mean()
+    rec = dict(phase="gpu_vs_cpu_equal_draws", scene="envmesh detail 32 64x64 d4 1spp",
+               pixels_within_tol=float(close.mean()), mean_rel_diff=float(rel),
+               max_abs_diff=float(np.abs(a - b).max()))
+    emit(rec)
+    if close.mean() < RENDER_SHARE or not rel < RENDER_MEAN_REL:
+        fail(f"card and CPU envmesh renders disagree at equal draws: {rec}")
+
+
+def bigmesh_path(ops_bvh, dev):
+    """The big-mesh forward path: each scene flattened (set-up), then
+    accumulated pass by pass as ``render`` does, K3/K4 counts reset just
+    before the path and read just after."""
+    from tinsel_tpu_torch.core.color import resolve
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_accumulate_fn
+
+    t0 = time.perf_counter()
+    scenes = big_scenes()
+    flats = {n: (sc.flatten(dev), CameraParams.from_host(sc.camera, dev))
+             for n, sc in scenes.items()}
+    emit(dict(phase="bigmesh_setup", host_build_and_flatten_s=time.perf_counter() - t0,
+              triangles={n: sum(p.mesh.real_tris for p in f.prim_static if p.mesh)
+                         for n, (f, _) in flats.items()}))
+    torch.cuda.synchronize()
+    ops_bvh.reset_launch_counts()
+    per_scene = {}
+    for name, depth, spp in BIG_SCENES:
+        flat, cam = flats[name]
+        before = dict(ops_bvh.launch_counts)
+        spp_pass = max(1, min(spp, (1 << 20) // (BIG_W * BIG_H)))
+        step = make_accumulate_fn(scenes[name].options, spp_pass)
+        source = GeneratorUniforms(0, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
+        for c in range(spp // spp_pass):
+            accum = step(accum, flat, cam, source, c)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        img = resolve(accum)
+        mean = float(img.mean())
+        if not torch.isfinite(accum).all() or not 0.01 < mean < 0.99:
+            fail(f"big-mesh path: {name} image is not finite or is black (mean {mean})")
+        n_lights = sum(flat.prim_static[j].light_samples for j in flat.light_indices)
+        rays = BIG_W * BIG_H * depth * (1 + n_lights) * spp
+        per_scene[name] = dict(
+            depth=depth, spp=spp, render_s=secs, ms_per_spp=secs * 1e3 / spp,
+            rays_per_s=rays / secs, image_mean=mean,
+            launches={k: v - before[k] for k, v in ops_bvh.launch_counts.items()},
+        )
+    launches = dict(ops_bvh.launch_counts)
+    emit(dict(phase="bigmesh_path", size=f"{BIG_W}x{BIG_H}",
+              ray_count="W*H*depth*(1+shadow rays) per spp", scenes=per_scene,
+              launches=launches))
+    if min(launches.values()) < 1:
+        fail(f"big-mesh path: a BVH kernel was never launched: {launches}")
+    return launches
+
+
+# ------------------------------------------------------------- gradients
+
+
+def _grad_leaves(grads):
+    gm, gc = grads
+    return {f"{o}.{f.name}": getattr(g, f.name)
+            for o, g in (("materials", gm), ("camera", gc)) for f in dataclasses.fields(g)}
+
+
+def gradient_equal_draw_phase(dev):
+    """render_loss_and_grads on the card and on the CPU at equal draws,
+    64x64, 1 spp. At depth 1 (camera rays and NEE) every gradient leaf
+    must lie within GRAD_TOL of its largest entry and the loss within
+    1e-5 relative. At depth 4 the numbers are reported: there about 0.1%
+    of the paths take another branch after a last-bit difference of a
+    transcendental function (the forward's equal-draw check), and a leaf
+    fed by a few such paths (a glossy sphere's roughness) moves by more."""
+    from tinsel_tpu_torch.core.sampling import NumpyUniforms
+    from tinsel_tpu_torch.diff.gradients import render_loss_and_grads
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene.presets import cornell_scene, envmesh_scene
+
+    for depth in (1, 4):
+        for name, sc in (("cornell", cornell_scene(64, 64, depth)),
+                         ("envmesh detail 32", envmesh_scene(64, 64, depth, detail=32))):
+            res = []
+            for d in (dev, torch.device("cpu")):
+                loss, grads = render_loss_and_grads(
+                    sc.flatten(d), CameraParams.from_host(sc.camera, d), NumpyUniforms(13, d),
+                    torch.full((64, 64, 3), 0.25, device=d), width=64, height=64,
+                    max_depth=depth,
+                )
+                res.append((float(loss), {k: v.cpu() for k, v in _grad_leaves(grads).items()}))
+            (la, ga), (lb, gb) = res
+            # a leaf whose gradient is zero in exact arithmetic holds the
+            # rounding noise of sums that cancel (envmesh at depth 1 sees
+            # only the sky, a function of the ray direction: its camera-
+            # position gradient is +g - g over every pixel, measured 3e-8
+            # of the largest leaf); leaves under 1e-3 of the largest
+            # gradient of any leaf are held against that instead
+            floor = 1e-3 * max(float(g.abs().max()) for g in gb.values())
+            dev_norm = {k: float((ga[k] - gb[k]).abs().max())
+                        / max(float(gb[k].abs().max()), floor, 1e-30) for k in gb}
+            worst = max(dev_norm, key=dev_norm.get)
+            rec = dict(phase="grad_gpu_vs_cpu_equal_draws", scene=f"{name} 64x64 d{depth} 1spp",
+                       fatal=depth == 1, loss_rel_diff=abs(la - lb) / abs(lb), worst_leaf=worst,
+                       worst_normalized_dev=dev_norm[worst])
+            emit(rec)
+            if depth == 1 and (rec["loss_rel_diff"] > 1e-5 or dev_norm[worst] > GRAD_TOL):
+                fail(f"card and CPU gradients disagree at equal draws: {rec}")
+
+
+def gradient_phase(ops_bvh, dev):
+    """The gradient step at full size on cornell and envmesh 512x512
+    depth 4, 1 spp: finite loss and gradients, some nonzero; peak device
+    memory; fwd+bwd / fwd at matched spp (bench.py:159-204: the same pass
+    with and without its backward, CUDA events, alternating, medians);
+    the backward's top kernels from the profiler. K3 counts are reset
+    just before and read just after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.diff.gradients import render_loss, render_loss_and_grads
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene.presets import cornell_scene, envmesh_scene
+
+    opts = dict(width=BIG_W, height=BIG_H, max_depth=4)
+    target = torch.full((BIG_H, BIG_W, 3), 0.25, device=dev)
+    for name, sc in (("cornell", cornell_scene(BIG_W, BIG_H, 4)),
+                     ("envmesh", envmesh_scene(BIG_W, BIG_H, 4))):
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_bvh.reset_launch_counts()
+        loss, grads = render_loss_and_grads(flat, cam, GeneratorUniforms(1, dev), target, **opts)
+        torch.cuda.synchronize()
+        launches = dict(ops_bvh.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        leaves = _grad_leaves(grads)
+        if not math.isfinite(float(loss)) or not all(bool(torch.isfinite(g).all())
+                                                     for g in leaves.values()):
+            fail(f"gradient step on {name}: loss or gradients not finite")
+        nonzero = sorted(k for k, g in leaves.items() if float(g.abs().max()) > 0)
+        if not nonzero:
+            fail(f"gradient step on {name}: every gradient is zero")
+        if name == "envmesh" and launches["bvh_closest"] < 1:
+            fail(f"gradient step on envmesh did not launch K3: {launches}")
+
+        def fwd_bwd(i):
+            render_loss_and_grads(flat, cam, GeneratorUniforms(i, dev), target, **opts)
+
+        def fwd(i):
+            with torch.no_grad():
+                render_loss(flat, cam, GeneratorUniforms(i, dev), target, **opts)
+
+        times = {"fwd_bwd": [], "fwd": []}
+        for i in range(3):
+            for key, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd), ("fwd_bwd", fwd_bwd), ("fwd", fwd)):
+                times[key].append(_event_ms(lambda: fn(i), 1))
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+        # the backward alone under the profiler
+        mats = dataclasses.replace(flat.materials, **{
+            f.name: getattr(flat.materials, f.name).clone().requires_grad_(True)
+            for f in dataclasses.fields(flat.materials)})
+        cam_l = dataclasses.replace(cam, **{
+            f.name: getattr(cam, f.name).clone().requires_grad_(True)
+            for f in dataclasses.fields(cam)})
+        ls = render_loss(dataclasses.replace(flat, materials=mats), cam_l,
+                         GeneratorUniforms(5, dev), target, **opts)
+        ins = [getattr(o, f.name) for o in (mats, cam_l) for f in dataclasses.fields(o)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            torch.autograd.grad(ls, ins, allow_unused=True)
+            torch.cuda.synchronize()
+            bwd_wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        scatter_ms = sum(e.self_device_time_total for e in kernels
+                         if "index" in e.key.lower() or "scatter" in e.key.lower()) / 1e3
+        emit(dict(
+            phase="gradient_step", scene=f"{name} {BIG_W}x{BIG_H} d4 1spp", loss=float(loss),
+            nonzero_leaves=len(nonzero), max_memory_allocated_gib=peak / 2**30,
+            fwd_bwd_ms=med["fwd_bwd"], fwd_ms=med["fwd"],
+            fwd_bwd_over_fwd=med["fwd_bwd"] / med["fwd"],
+            fwd_bwd_rays_per_s=BIG_W * BIG_H * 4 / (med["fwd_bwd"] / 1e3),
+            launches=launches, backward_wall_ms=bwd_wall,
+            backward_device_busy_ms=busy if busy > 0 else "not measured",
+            backward_index_scatter_ms=scatter_ms,
+            backward_top_kernels=[[e.key[:70], e.count, e.self_device_time_total / 1e3]
+                                  for e in top],
+        ))
+        del flat, cam, loss, grads, leaves, ls, ins, mats, cam_l, prof
+
+
+def trainer_phase(dev):
+    """10 Adam steps of the inverse-rendering example at 512x512 depth 4:
+    the visible-albedo error must fall."""
+    from tinsel_tpu_torch.examples.inverse_rendering import main as train
+
+    t0 = time.perf_counter()
+    err0, err1 = train(steps=10, size=BIG_W, spp_target=8, seed=0, device=dev, max_depth=4)
+    torch.cuda.synchronize()
+    rec = dict(phase="trainer", scene=f"cornell {BIG_W}x{BIG_H} d4", steps=10,
+               err0=err0, err1=err1, seconds=time.perf_counter() - t0)
+    emit(rec)
+    if not err1 < err0:
+        fail(f"trainer: the albedo error did not fall: {rec}")
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
@@ -470,9 +901,9 @@ def main():
         for line in log.splitlines():
             if "error" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
-        for inst, regs, spill_st, spill_ld in ptxas_summary(log):
-            print(f"ptxas[{name}]: {inst}: {regs} registers, {spill_st} B spill stores, "
-                  f"{spill_ld} B spill loads", flush=True)
+        for inst, regs, stack, spill_st, spill_ld in ptxas_summary(log):
+            print(f"ptxas[{name}]: {inst}: {regs} registers, {stack} B stack frame, "
+                  f"{spill_st} B spill stores, {spill_ld} B spill loads", flush=True)
     emit(dict(phase="build", seconds=build_s, sources=list(_build.SOURCES)))
 
     worst = kernel_phase(ops_nlm, plain, dev)
@@ -481,6 +912,15 @@ def main():
     k1, k2 = main_inputs_phase(ops_nlm, plain, img, aov)
     trace_split_phase(dev)
     profile_phase(dev)
+
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+
+    walks = bvh_kernel_phase(dev)
+    bigmesh_equal_draw_phase(dev)
+    launches.update(bigmesh_path(ops_bvh, dev))
+    gradient_equal_draw_phase(dev)
+    gradient_phase(ops_bvh, dev)
+    trainer_phase(dev)
 
     table = []
     for rec, key, replaces in (
@@ -493,6 +933,24 @@ def main():
             name=key, route="cuda", source="tinsel_tpu_torch/csrc/nlm.cu",
             replaces=replaces, launches=launches[key],
             max_abs_err=max(worst[key], rec["max_abs_err"]),
+            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            bound_share=rec["bound_share"], library_ms=None,
+        ))
+    # K3 at the main path's incoherent bounce rays (envmesh's first diffuse
+    # bounce), K4 at its shadow rays (many_mesh's NEE); the error is the
+    # worst over every input
+    for key, tag, replaces in (
+        ("bvh_closest", "envmesh rays",
+         "tinsel_tpu/accel/traverse.py:761 intersect_mesh (_step :390)"),
+        ("bvh_any", "many_mesh shadow rays",
+         "tinsel_tpu/accel/traverse.py:903 intersect_mesh_any (_traverse_tile_any :811)"),
+    ):
+        rec = next(r for r in walks[key] if r["shape"] == tag)
+        table.append(dict(
+            name=key, route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
+            replaces=replaces, launches=launches[key],
+            max_abs_err=max(r["max_abs_err"] for r in walks[key]),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             bound_share=rec["bound_share"], library_ms=None,

@@ -50,6 +50,11 @@ def _scene(model, presets, kind):
             end_transform=model.HostTransform(
                 p=np.array([-0.1, 0.6, 0.3], np.float32), s=0.25),
         ))
+    elif kind == "cornell+fan17":
+        # 17 triangles: one more than a block, so the mesh gets a BVH
+        sc.add_primitive(model.Primitive(type=model.MESH, mesh=_fan_mesh(model, 17)))
+    elif kind == "cornell+bump":
+        sc.primitives[0].material.bump = 0.5
     return sc
 
 
@@ -57,7 +62,10 @@ def _fields(obj):
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
-@pytest.mark.parametrize("kind", ["cornell", "cornell+fan"])
+KINDS = ["cornell", "cornell+fan", "cornell+fan17", "cornell+bump"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_flatten_matches_jax(kind):
     jf = _scene(jmodel, jpresets, kind).flatten()
     tf = _scene(tmodel, tpresets, kind).flatten(device="cpu")
@@ -68,23 +76,28 @@ def test_flatten_matches_jax(kind):
                 err_msg=f"{group}.{name}",
             )
     np.testing.assert_array_equal(tf.pool.tri_cdf.numpy(), np.asarray(jf.pool.tri_cdf))
+    np.testing.assert_array_equal(
+        tf.pool.node_rows.numpy().view(np.uint32), np.asarray(jf.pool.node_rows).view(np.uint32)
+    )
+    np.testing.assert_array_equal(tf.pool.block_rows.numpy(), np.asarray(jf.pool.block_rows))
     for key in ("tri_planes", "nrm_planes"):
         for a, b in zip(getattr(tf.pool, key), getattr(jf.pool, key), strict=True):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=key)
     for name in ("sky_horizon", "sky_zenith", "prim_type", "prim_light_samples",
-                 "prim_local_area"):
+                 "prim_local_area", "prim_bump"):
         np.testing.assert_array_equal(
             getattr(tf, name).numpy(), np.asarray(getattr(jf, name)), err_msg=name
         )
     assert tf.light_indices == jf.light_indices
+    assert tf.has_bump == jf.has_bump == (kind == "cornell+bump")
     for tp, jp in zip(tf.prim_static, jf.prim_static, strict=True):
         assert (tp.type, tp.material_index, tp.light_samples, tp.motion) == (
             jp.type, jp.material_index, jp.light_samples, jp.motion
         )
         assert (tp.mesh is None) == (jp.mesh is None)
         if tp.mesh is not None:
-            for name in ("node_offset", "tri_offset", "num_tris", "real_tris",
-                         "area", "root_lower", "root_upper"):
+            for name in ("node_offset", "num_nodes", "tri_offset", "num_tris",
+                         "real_tris", "area", "root_lower", "root_upper", "stack_slots"):
                 assert getattr(tp.mesh, name) == getattr(jp.mesh, name), name
 
 
@@ -100,7 +113,7 @@ def test_cornell_quad_padding():
     assert (h.real_tris, h.num_tris, h.root_lower[1], h.root_upper[1]) == (2, 16, 0.0, 0.0)
 
 
-@pytest.mark.parametrize("kind", ["cornell", "cornell+fan"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_scene_flat_from_numpy_round_trips(kind):
     jf = _scene(jmodel, jpresets, kind).flatten()
     tf = _scene(tmodel, tpresets, kind).flatten(device="cpu")
@@ -113,10 +126,13 @@ def test_scene_flat_from_numpy_round_trips(kind):
         for a, b in zip(getattr(cf.pool, key), getattr(tf.pool, key), strict=True):
             assert torch.equal(a, b)
     assert torch.equal(cf.pool.tri_cdf, tf.pool.tri_cdf)
-    for name in ("prim_type", "prim_light_samples", "prim_local_area"):
+    assert torch.equal(cf.pool.block_rows, tf.pool.block_rows)
+    assert torch.equal(cf.pool.node_rows.view(torch.int32), tf.pool.node_rows.view(torch.int32))
+    for name in ("prim_type", "prim_light_samples", "prim_local_area", "prim_bump"):
         assert torch.equal(getattr(cf, name), getattr(tf, name))
     assert cf.prim_static == tf.prim_static
     assert cf.light_indices == tf.light_indices
+    assert cf.has_bump == tf.has_bump
 
 
 def test_camera_from_numpy_matches_from_host():
@@ -127,14 +143,12 @@ def test_camera_from_numpy_matches_from_host():
         assert torch.equal(val, getattr(b, name)), name
 
 
-@pytest.mark.parametrize("what", ["big_mesh", "probe", "bump"])
+@pytest.mark.parametrize("what", ["probe"])
 def test_flatten_refuses_later_slices(what):
+    """HDR probes are slice 4; big meshes and bump maps flatten since
+    slice 3 (test_flatten_matches_jax, kinds cornell+fan17 and
+    cornell+bump)."""
     sc = tpresets.cornell_scene(8, 8, 1)
-    if what == "big_mesh":
-        sc.add_primitive(tmodel.Primitive(type=tmodel.MESH, mesh=_fan_mesh(tmodel, 17)))
-    elif what == "probe":
-        sc.sky.probe = object()
-    else:
-        sc.primitives[0].material.bump = 0.5
+    sc.sky.probe = object()
     with pytest.raises(NotImplementedError, match="slice"):
         sc.flatten(device="cpu")

@@ -32,11 +32,13 @@ def scene_to_numpy(flat):
         obj = getattr(flat, group)
         for f in dataclasses.fields(obj):
             arrays[f"{group}.{f.name}"] = np.asarray(getattr(obj, f.name))
+    arrays["pool.node_rows"] = np.asarray(flat.pool.node_rows)
+    arrays["pool.block_rows"] = np.asarray(flat.pool.block_rows)
     arrays["pool.tri_cdf"] = np.asarray(flat.pool.tri_cdf)
     arrays["pool.tri_planes"] = np.stack([np.asarray(p) for p in flat.pool.tri_planes])
     arrays["pool.nrm_planes"] = np.stack([np.asarray(p) for p in flat.pool.nrm_planes])
     for name in ("sky_horizon", "sky_zenith", "prim_type", "prim_light_samples",
-                 "prim_local_area"):
+                 "prim_local_area", "prim_bump"):
         arrays[name] = np.asarray(getattr(flat, name))
     prim_static = []
     for ps in flat.prim_static:
@@ -45,7 +47,8 @@ def scene_to_numpy(flat):
             type=ps.type, mesh=mesh, material_index=ps.material_index,
             light_samples=ps.light_samples, motion=ps.motion,
         ))
-    return arrays, dict(prim_static=prim_static, light_indices=flat.light_indices)
+    return arrays, dict(prim_static=prim_static, light_indices=flat.light_indices,
+                        has_bump=flat.has_bump)
 
 
 def camera_to_numpy(cam):

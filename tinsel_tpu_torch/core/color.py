@@ -29,6 +29,28 @@ def tonemap_filmic(c):
     return srgb_to_linear(ret)
 
 
+def hsv_to_rgb(h, s, v):
+    """HSV -> RGB, broadcasting, h in [0, 1) (port of
+    ``tinsel_tpu/core/color.py:62``, same operation order)."""
+    h6 = torch.remainder(h, 1.0) * 6.0
+    i = torch.floor(h6)
+    f = h6 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def pick(*vals):
+        out = vals[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, vals[k], out)
+        return out
+
+    return torch.stack(
+        [pick(v, q, p, p, t, v), pick(t, v, v, q, p, p), pick(p, p, t, v, v, q)], dim=-1
+    )
+
+
 def tonemap_reinhard(c, limit=1.0):
     lum = luminance(c)
     return c / (1.0 + lum / limit)[..., None]

@@ -10,7 +10,9 @@ against libcuda. Nothing is compiled when the package is imported: the
 first launch builds, or ``build_all`` does.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v [-fmad=false] -o lib<name>.so csrc/<name>.cu
+
+(``-fmad=false`` for ``bvh.cu`` only, see ``EXTRA_FLAGS``.)
 """
 
 from __future__ import annotations
@@ -26,11 +28,18 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nlm",)
+SOURCES = ("nlm", "bvh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# per source: the BVH walks round every product and sum on its own, so
+# that t equals the plain version's bit for bit (csrc/bvh.cu)
+EXTRA_FLAGS = {"bvh": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    return FLAGS + EXTRA_FLAGS.get(name, ())
 
 _libs: dict = {}
 build_log: dict = {}  # name -> (seconds, compiler output) of builds run here
@@ -52,7 +61,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -64,7 +73,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

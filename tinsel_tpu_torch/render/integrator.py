@@ -3,7 +3,8 @@ ray batch, every per-path branch carried as masks (port of
 ``_make_bounce`` / ``path_trace`` in ``tinsel_tpu/render/integrator.py``).
 
 Per bounce: closest hit -> sky for escaped rays -> Beer-Lambert absorption
--> emission MIS -> next-event estimation -> BSDF sample -> state update.
+-> bump normal (scenes with a bump material) -> emission MIS -> next-event
+estimation -> BSDF sample -> state update.
 Per-primitive lookups are exact ``index_select`` gathers where the JAX
 package uses exact one-hot matmuls. Once every lane is dead the remaining
 bounces are skipped, which changes no value. Russian roulette and probes
@@ -18,6 +19,7 @@ from ..bsdf.disney import SPECULAR, bsdf_eval, bsdf_sample
 from ..core.math import basis_from_vector, dot, face_forward, lerp
 from ..core.sampling import Prefixed
 from ..scene.model import SceneFlat
+from .bump import bump_normal
 from .lights import RAY_EPS, K_BSDF_SAMPLES, sample_lights
 from .probe import sky_eval
 from .trace import trace_closest
@@ -76,6 +78,9 @@ def _make_bounce(scene: SceneFlat, times, source, r, light_sampling: str = "all"
 
         p = o + d * t_safe[..., None]
         n = hit.normal
+        if scene.has_bump:  # bump-free scenes evaluate no noise
+            bmp = scene.prim_bump[idx]
+            n = bump_normal(n, p, bmp[..., 0], bmp[..., 1])
 
         # emission: direct at depth 0; MIS-weighted on BSDF rays after
         lsamp = scene.prim_light_samples[idx]

@@ -1,17 +1,25 @@
 """Scene-level closest-hit and shadow tracing (port of
-``tinsel_tpu/render/trace.py`` for spheres, planes and tiny meshes).
+``tinsel_tpu/render/trace.py``).
 
 Every ray tests every primitive with masks. Spheres and planes are batched
-by type as (P, R) tests; mesh primitives whose triangles fit one 16-slot
-block are grouped by pool segment and swept by ``_intersect_mesh_brute``
-after a root-box cull. Rows merge in the JAX order (spheres, planes, tiny
-groups) with a strict ``<``, so ties keep the earlier primitive, and the
-final normal is face-forwarded against the ray. The search runs without
-gradient; the winning triangle is re-intersected with grad enabled, as in
-the JAX package. Meshes that need the BVH walk raise (slice 3).
+by type as (P, R) tests. Mesh primitives whose triangles fit one 16-slot
+block are grouped by pool segment and swept by the brute test; every other
+mesh primitive joins ONE batch of (instance, ray) lanes with per-lane
+sub-BVH offsets, walked by kernels K3 (closest) and K4 (any hit) through
+``ops/bvh.py`` after a root-box cull. Above ``INSTANCE_TOPK_MIN`` big
+instances the batch walks only the ``INSTANCE_TOPK`` nearest-entry
+instances per ray per round, repeating while some ray's next unvisited
+box entry still beats its best hit (``_instance_rounds``). Rows merge in
+the JAX order (spheres, planes, tiny groups, the big batch) with a strict
+``<``, so ties keep the earlier primitive, and the final normal is
+face-forwarded against the ray.
 
-These sweeps run as torch ops in this slice; whether they become the
-fused scene-trace kernel K5 is decided by measurement (PERF.md).
+The search runs without gradient (the JAX package's ``stop_gradient``);
+the winning triangle is then re-intersected with grad enabled, with its
+vertices and normals detached (``MESH_VERTEX_GRADS = False`` there), so
+gradients reach the ray and the instance transform. The sphere, plane and
+tiny-mesh sweeps run as torch ops; whether they become the fused kernel K5
+is decided by measurement (PERF.md).
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import dataclasses
 
 import torch
 
-from ..accel.traverse import BLOCK_SIZE, intersect_mesh, intersect_mesh_any
+from ..accel.build import BLOCK_SIZE
+from ..accel.traverse import intersect_mesh, intersect_mesh_any
 from ..core.math import (
     Transform,
     dot,
@@ -37,7 +46,11 @@ from ..geometry.intersect import (
     intersect_ray_sphere,
     intersect_ray_tri,
 )
+from ..ops import bvh as ops_bvh
 from ..scene.model import MESH, PLANE, SPHERE, SceneFlat
+
+INSTANCE_TOPK = 4  # candidate instances walked per shortlist round
+INSTANCE_TOPK_MIN = 12  # shortlist rounds engage above this instance count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,22 +93,21 @@ def _prim_transforms_batched(scene: SceneFlat, idxs, times):
 
 
 def _mesh_partition(scene: SceneFlat):
-    """(tiny groups keyed by pool segment, spheres, planes)."""
+    """(tiny groups keyed by pool segment, big-mesh prims, spheres, planes)."""
     tiny_groups: dict = {}
-    spheres, planes = [], []
+    big, spheres, planes = [], [], []
     for i, ps in enumerate(scene.prim_static):
         if ps.type == MESH:
-            if ps.mesh.num_tris > BLOCK_SIZE:
-                raise NotImplementedError(
-                    "big-mesh traversal (kernels K3/K4/K6) is ported in slice 3"
-                )
-            k = (ps.mesh.node_offset, ps.mesh.tri_offset)
-            tiny_groups.setdefault(k, []).append(i)
+            if ps.mesh.num_tris <= BLOCK_SIZE:
+                k = (ps.mesh.node_offset, ps.mesh.tri_offset)
+                tiny_groups.setdefault(k, []).append(i)
+            else:
+                big.append(i)
         elif ps.type == SPHERE:
             spheres.append(i)
         elif ps.type == PLANE:
             planes.append(i)
-    return tiny_groups, spheres, planes
+    return tiny_groups, big, spheres, planes
 
 
 def _instance_box_entry(handles, o_l, d_l, tmax_b):
@@ -129,6 +141,92 @@ def _local_rays(scene, idxs, origins, dirs, times):
     return tr_b, o_l, d_l
 
 
+def _batches(tiny_groups, big):
+    return [(idxs, True) for idxs in tiny_groups.values()] + ([(big, False)] if big else [])
+
+
+def _offsets(handles, dev):
+    """(node offsets, tri offsets) (I,) int32 and the batch's stack bound."""
+    noff = torch.tensor([h.node_offset for h in handles], dtype=torch.int32, device=dev)
+    toff = torch.tensor([h.tri_offset for h in handles], dtype=torch.int32, device=dev)
+    return noff, toff, max(h.stack_slots for h in handles)
+
+
+def _lane_offsets(off, r):
+    """(I,) offsets -> (I * R,) per lane, instance-major (contiguous, as
+    the kernels take them)."""
+    return off.repeat_interleave(r)
+
+
+def _shortlist_candidates(work, k: int):
+    """The k nearest-entry instances per ray from the (I, R) entry table
+    ``work`` (visited or missed entries +inf): ((k, R) ids, (k, R) entry
+    distances, ``work`` with the picks set to +inf)."""
+    rows = torch.arange(work.shape[0], device=work.device)[:, None]
+    ids, tns = [], []
+    for _ in range(k):
+        j = torch.argmin(work, dim=0)
+        tns.append(work.gather(0, j[None, :])[0])
+        ids.append(j)
+        work = torch.where(rows == j[None, :], INF, work)
+    return torch.stack(ids), torch.stack(tns), work
+
+
+def _candidate_rays(o_l, d_l, ids):
+    sel = ids[:, :, None].expand(*ids.shape, 3)
+    k, r = ids.shape
+    return o_l.gather(0, sel).reshape(k * r, 3), d_l.gather(0, sel).reshape(k * r, 3)
+
+
+def _instance_rounds(scene, o_l, d_l, tn, best_t0, noff, toff, stack_slots):
+    """tn-ordered top-k instance rounds, closest hit (port of
+    ``tinsel_tpu/render/trace.py:267``). o_l/d_l (I, R, 3) local rays, tn
+    (I, R) box entry distances (+inf = culled). Returns (t, tri, inst)."""
+    k = INSTANCE_TOPK
+    r = o_l.shape[1]
+    cand = torch.arange(k, device=o_l.device)[:, None]
+    work, t_b = tn, best_t0
+    tri_b = torch.full((r,), -1, dtype=torch.int32, device=o_l.device)
+    inst_b = torch.zeros((r,), dtype=torch.long, device=o_l.device)
+    while bool((work.min(dim=0).values < t_b).any()):
+        ids, tns, work = _shortlist_candidates(work, k)
+        o_c, d_c = _candidate_rays(o_l, d_l, ids)
+        tm_c = torch.where(tns < t_b[None, :], t_b[None, :], 0.0)
+        t_f, tri_f = ops_bvh.closest_hit(
+            scene.pool, noff[ids].reshape(-1), toff[ids].reshape(-1), o_c, d_c,
+            tm_c.reshape(-1), stack_slots,
+        )
+        t_i, tri_i = t_f.reshape(k, r), tri_f.reshape(k, r)
+        t_min = t_i.min(dim=0).values
+        closer = torch.isfinite(t_min) & (t_min < t_b)
+        ci = torch.where(t_i == t_min[None, :], cand, k).min(dim=0).values
+        oh_k = cand == torch.clamp(ci, max=k - 1)[None, :]
+        inst_w = torch.where(oh_k, ids, 0).sum(dim=0)
+        tri_w = torch.where(oh_k, tri_i, 0).sum(dim=0, dtype=torch.int32)
+        t_b = torch.where(closer, t_min, t_b)
+        tri_b = torch.where(closer, tri_w, tri_b)
+        inst_b = torch.where(closer, inst_w, inst_b)
+    return t_b, tri_b, inst_b
+
+
+def _instance_rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots):
+    """The rounds, occlusion form (``tinsel_tpu/render/trace.py:330``).
+    tmax (R,) is 0 where a ray is already occluded. Returns (R,) bool."""
+    k = INSTANCE_TOPK
+    r = o_l.shape[1]
+    work = tn
+    while bool((~occ & (work.min(dim=0).values < tmax)).any()):
+        ids, tns, work = _shortlist_candidates(work, k)
+        o_c, d_c = _candidate_rays(o_l, d_l, ids)
+        tm_c = torch.where(~occ[None, :] & (tns < tmax[None, :]), tmax[None, :], 0.0)
+        oc = ops_bvh.any_hit(
+            scene.pool, noff[ids].reshape(-1), toff[ids].reshape(-1), o_c, d_c,
+            tm_c.reshape(-1), stack_slots,
+        )
+        occ = occ | oc.reshape(k, r).any(dim=0)
+    return occ
+
+
 def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     """Closest hit over all primitives. origins/dirs (R, 3), times (R,)."""
     r = origins.shape[0]
@@ -137,7 +235,7 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     best_prim = torch.full((r,), -1, dtype=torch.int32, device=dev)
     best_n = torch.zeros((r, 3), dtype=torch.float32, device=dev)
 
-    tiny_groups, spheres, planes = _mesh_partition(scene)
+    tiny_groups, big, spheres, planes = _mesh_partition(scene)
 
     def merge_rows(t_rows, n_rows, ids):
         nonlocal best_t, best_prim, best_n
@@ -167,29 +265,41 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
         )
         merge_rows(torch.where(hit & (t > 0.0), t, INF), n, planes)
 
-    for idxs in tiny_groups.values():
+    for idxs, is_tiny in _batches(tiny_groups, big):
         handles = [scene.prim_static[i].mesh for i in idxs]
         n_inst = len(idxs)
         tr_b, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
+        inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
+        noff, toff, slots = _offsets(handles, dev)
 
         # the discrete search for the winning triangle runs without grad
         with torch.no_grad():
             tmax_b = torch.broadcast_to(best_t[None, :], (n_inst, r))
-            may_hit, _ = _instance_box_entry(handles, o_l, d_l, tmax_b)
-            tmax_i = torch.where(may_hit, tmax_b, 0.0)
-            t_f, tri_f = intersect_mesh(
-                scene.pool, handles[0].tri_offset,
-                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3),
-                tmax_i.reshape(n_inst * r), num_tris=handles[0].real_tris,
-            )
-            # local t equals world t (uniform scale folds into |d_l|)
-            t_i = t_f.reshape(n_inst, r)
-            tri_i = tri_f.reshape(n_inst, r)
-            inst_ids = torch.arange(n_inst, dtype=torch.int32, device=dev)[:, None]
-            t_min = t_i.min(dim=0).values
-            inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
-            inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
-            tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
+            may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
+            tmax_i = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
+            o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
+            if is_tiny or n_inst <= INSTANCE_TOPK_MIN:
+                if is_tiny:  # one shared segment: the brute sweep
+                    t_f, tri_f = intersect_mesh(
+                        scene.pool, handles[0].node_offset, handles[0].tri_offset,
+                        o_f, d_f, tmax_i, num_tris=handles[0].real_tris,
+                    )
+                else:
+                    t_f, tri_f = ops_bvh.closest_hit(
+                        scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
+                        o_f, d_f, tmax_i, slots,
+                    )
+                # local t equals world t (uniform scale folds into |d_l|)
+                t_i = t_f.reshape(n_inst, r)
+                tri_i = tri_f.reshape(n_inst, r)
+                t_min = t_i.min(dim=0).values
+                inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
+                inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
+                tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
+            else:
+                t_min, tri, inst = _instance_rounds(
+                    scene, o_l, d_l, tn, best_t, noff, toff, slots
+                )
             hit = torch.isfinite(t_min) & (t_min < best_t)
 
         # winning instance's local ray + rotation, then a differentiable
@@ -199,11 +309,9 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
         dw = (onehot[..., None] * d_l).sum(dim=0)
         qw = (onehot[..., None] * tr_b.q).sum(dim=0)
 
-        toff = torch.tensor([h.tri_offset for h in handles], dtype=torch.long,
-                            device=dev)
-        gt = toff[inst.long()] + torch.clamp(tri, min=0).long()
-        v0, v1, v2 = scene.pool.gather_tri(gt)
-        n0, n1, n2 = scene.pool.gather_normals(gt)
+        gt = toff.long()[inst] + torch.clamp(tri, min=0).long()
+        v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
+        n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
         _, t, u, v, w, n_geo = intersect_ray_tri(v0, v1, v2, ow, dw)
         t = torch.where(hit & (tri >= 0), t, INF)
         ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
@@ -213,7 +321,7 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
             quat_rotate(qw, ns), fallback=safe_normalize(quat_rotate(qw, n_geo))
         )
 
-        prim_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)[inst.long()]
+        prim_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)[inst]
         closer = hit & (t > 0.0) & (t < best_t)
         best_t = torch.where(closer, t, best_t)
         best_prim = torch.where(closer, prim_ids, best_prim)
@@ -231,7 +339,7 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
     occ = torch.zeros((r,), dtype=torch.bool, device=dev)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
 
-    tiny_groups, spheres, planes = _mesh_partition(scene)
+    tiny_groups, big, spheres, planes = _mesh_partition(scene)
     if spheres:
         sel = torch.as_tensor(spheres, dtype=torch.long, device=dev)
         tr_b = _prim_transforms_batched(scene, spheres, times)
@@ -250,20 +358,29 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
         )
         occ = occ | (hit & (t > 0.0) & (t < tmax[None, :])).any(dim=0)
 
-    for idxs in tiny_groups.values():
+    for idxs, is_tiny in _batches(tiny_groups, big):
         handles = [scene.prim_static[i].mesh for i in idxs]
         n_inst = len(idxs)
         _, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
+        noff, toff, slots = _offsets(handles, dev)
         # already-occluded rays get tmax 0 -> no hit in any frame
-        tmax_b = torch.broadcast_to(
-            torch.where(occ, 0.0, tmax)[None, :], (n_inst, r)
-        )
-        may_hit, _ = _instance_box_entry(handles, o_l, d_l, tmax_b)
+        tmax_r = torch.where(occ, 0.0, tmax)
+        tmax_b = torch.broadcast_to(tmax_r[None, :], (n_inst, r))
+        may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
         tm = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
-        oc = intersect_mesh_any(
-            scene.pool, handles[0].tri_offset,
-            o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tm,
-            num_tris=handles[0].real_tris,
-        )
+        o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
+        if is_tiny:
+            oc = intersect_mesh_any(
+                scene.pool, handles[0].node_offset, handles[0].tri_offset, o_f, d_f,
+                tm, num_tris=handles[0].real_tris,
+            )
+        elif n_inst <= INSTANCE_TOPK_MIN:
+            oc = ops_bvh.any_hit(
+                scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r), o_f, d_f,
+                tm, slots,
+            )
+        else:
+            occ = _instance_rounds_any(scene, o_l, d_l, tn, tmax_r, occ, noff, toff, slots)
+            continue
         occ = occ | oc.reshape(n_inst, r).any(dim=0)
     return occ

@@ -9,14 +9,15 @@ Nothing here imports JAX: the caller turns its arrays into numpy.
 
 * ``prims.<field>`` for every ``PrimsFlat`` field,
 * ``materials.<field>`` for every ``MaterialsFlat`` field,
-* ``pool.tri_cdf`` (Tp,), ``pool.tri_planes`` and ``pool.nrm_planes``
+* ``pool.node_rows`` (Ni, 72), ``pool.block_rows`` (B, 192),
+  ``pool.tri_cdf`` (Tp,), ``pool.tri_planes`` and ``pool.nrm_planes``
   (9, Tp), the JAX tuples of nine planes stacked,
 * ``sky_horizon``, ``sky_zenith``, ``prim_type``, ``prim_light_samples``,
-  ``prim_local_area``.
+  ``prim_local_area``, ``prim_bump``.
 
 ``static`` holds ``prim_static``, a list of dicts with the ``PrimStatic``
-fields (``mesh`` a dict with the ``MeshHandle`` fields, or None), and
-``light_indices``.
+fields (``mesh`` a dict with the ``MeshHandle`` fields, or None),
+``light_indices`` and ``has_bump``.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ def scene_flat_from_numpy(arrays: dict, static: dict, device=None) -> SceneFlat:
         prims=group(PrimsFlat, "prims"),
         materials=group(MaterialsFlat, "materials"),
         pool=MeshPool(
+            node_rows=_tensor(arrays["pool.node_rows"], device, torch.float32),
+            block_rows=_tensor(arrays["pool.block_rows"], device, torch.float32),
             tri_cdf=_tensor(arrays["pool.tri_cdf"], device),
             tri_planes=tuple(
                 _tensor(p, device) for p in np.asarray(arrays["pool.tri_planes"])
@@ -81,8 +84,10 @@ def scene_flat_from_numpy(arrays: dict, static: dict, device=None) -> SceneFlat:
         prim_type=_tensor(arrays["prim_type"], device, torch.int32),
         prim_light_samples=_tensor(arrays["prim_light_samples"], device, torch.int32),
         prim_local_area=_tensor(arrays["prim_local_area"], device),
+        prim_bump=_tensor(arrays["prim_bump"], device, torch.float32),
         prim_static=tuple(prim_static),
         light_indices=tuple(int(i) for i in static["light_indices"]),
+        has_bump=bool(static["has_bump"]),
     )
 
 

@@ -1,11 +1,12 @@
 """Host scene model (NumPy dataclasses) and its flattening to device tensors.
 
 The port's own copy of ``tinsel_tpu/scene/model.py`` (``Scene.flatten`` at
-``:434-675``), cut to what the Cornell forward path needs: spheres, planes
-and meshes of at most 16 triangles. Such a mesh keeps the JAX padded layout
-exactly: its triangles in their original order, padded to one 16-slot block
-by repeating the last triangle, with the area CDF padded by its last value
-(1.0). Larger meshes need the BVH and raise. Probes and bump maps raise too.
+``:434-675``) for spheres, planes and triangle meshes of any size. Every
+mesh is built into the 16-ary traversal layout (``accel/build.py``): node
+rows, 16-triangle leaf blocks and the triangles in block-padded order,
+exactly as the JAX package lays them out with its NumPy builder. Meshes
+that fit one block keep the brute sweep at trace time. HDR probes raise
+(slice 4).
 """
 
 from __future__ import annotations
@@ -17,7 +18,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..accel.traverse import BLOCK_SIZE, MeshHandle, MeshPool
+from ..accel.build import (
+    BVH,
+    NODE_ROW_WIDTH,
+    NODE_SKIP_COL,
+    NODE_WORD_COL,
+    BLOCK_SIZE,
+    build_bvh,
+    build_wide_bvh,
+    triangle_bounds,
+    wide_stack_bound,
+)
+from ..accel.traverse import MAX_STACK_SLOTS, MeshHandle, MeshPool
 from ..device import resolve_device
 
 # primitive type tags
@@ -66,11 +78,12 @@ class HostTransform:
 
 @dataclasses.dataclass
 class Mesh:
-    """Host triangle mesh with vertex normals and area CDF."""
+    """Host triangle mesh with vertex normals, BVH and area CDF."""
 
     positions: np.ndarray  # (V, 3) f32
     indices: np.ndarray  # (T, 3) i32
     normals: Optional[np.ndarray] = None  # (V, 3) f32
+    bvh: Optional[BVH] = None
     cdf: Optional[np.ndarray] = None  # (T,) normalized area CDF
     area: float = 0.0
     name: str = ""
@@ -100,10 +113,15 @@ class Mesh:
         self.area = total
         self.cdf = (np.cumsum(areas) / max(total, 1e-30)).astype(np.float32)
 
+    def rebuild_bvh(self):
+        lo, hi = triangle_bounds(self.positions, self.indices)
+        self.bvh = build_bvh(lo, hi)
+
     def build(self):
         if self.normals is None or len(self.normals) != len(self.positions):
             self.calculate_normals()
         self.rebuild_cdf()
+        self.rebuild_bvh()
 
 
 @dataclasses.dataclass
@@ -243,32 +261,10 @@ class SceneFlat:
     prim_type: torch.Tensor  # (P,) i32
     prim_light_samples: torch.Tensor  # (P,) i32
     prim_local_area: torch.Tensor  # (P,) f32 (sphere: 4 pi r^2; mesh: area)
+    prim_bump: torch.Tensor  # (P, 2) f32 [strength, tile]
     prim_static: tuple = ()
     light_indices: tuple = ()
-
-
-def _pad_mesh(m: Mesh):
-    """Padded triangle order of a one-block mesh: (perm_padded, real_mask,
-    root_lower, root_upper), equal to tinsel_tpu's build_wide_bvh for a
-    mesh whose binary BVH is one leaf."""
-    n_real = int(len(m.indices))
-    if n_real > BLOCK_SIZE:
-        raise NotImplementedError(
-            f"mesh {m.name!r} has {n_real} triangles: meshes above "
-            f"{BLOCK_SIZE} triangles need the BVH, which is ported in slice 3"
-        )
-    if n_real == 0:
-        raise ValueError("cannot flatten a mesh with zero triangles")
-    perm = np.arange(n_real, dtype=np.int64)
-    perm_padded = np.concatenate(
-        [perm, np.repeat(perm[n_real - 1], BLOCK_SIZE - n_real)]
-    )
-    real_mask = np.zeros(BLOCK_SIZE, bool)
-    real_mask[:n_real] = True
-    tris = m.positions[m.indices]  # (T, 3, 3)
-    root_lower = tris.min(axis=1).min(axis=0)
-    root_upper = tris.max(axis=1).max(axis=0)
-    return perm_padded, real_mask, root_lower, root_upper
+    has_bump: bool = False  # some material has bump > 0
 
 
 @dataclasses.dataclass
@@ -286,8 +282,6 @@ class Scene:
         device = resolve_device(device)
         if self.sky.probe is not None:
             raise NotImplementedError("HDR probes are ported in slice 4")
-        if any(p.material.bump > 0.0 for p in self.primitives):
-            raise NotImplementedError("bump maps are ported in slice 4")
         if not self.primitives:
             # sky-only scene: one invisible primitive keeps every table
             # non-empty; rays can never hit it
@@ -317,13 +311,15 @@ class Scene:
                     mesh_list.append(prim.mesh)
 
         handles: List[MeshHandle] = []
+        node_rows_list = []
         tri_arrays = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2", "cdf")}
-        tri_off = 0
+        node_off = tri_off = 0
         for m in mesh_list:
-            if m.cdf is None or m.normals is None:
+            if m.bvh is None or m.cdf is None or m.normals is None:
                 m.build()
-            perm_padded, real_mask, root_lower, root_upper = _pad_mesh(m)
-            tri_idx = m.indices[perm_padded]  # (Tp, 3) vertex ids
+            wide = build_wide_bvh(m.bvh)
+            node_rows_list.append(wide.node_rows)
+            tri_idx = m.indices[wide.perm_padded]  # (Tp, 3) vertex ids
             v = m.positions[tri_idx]  # (Tp, 3, 3)
             n = m.normals[tri_idx]
             for k in range(3):
@@ -333,25 +329,42 @@ class Scene:
             areas = 0.5 * np.linalg.norm(
                 np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=-1
             )
-            areas = np.where(real_mask, areas, 0.0)
+            areas = np.where(wide.real_mask, areas, 0.0)
             tri_arrays["cdf"].append(
                 (np.cumsum(areas) / max(float(areas.sum()), 1e-30)).astype(
                     np.float32
                 )
             )
-            n_padded = len(perm_padded)
+            n_padded = len(wide.perm_padded)
+            ss = wide_stack_bound(wide)
+            if ss > MAX_STACK_SLOTS:
+                raise ValueError(
+                    f"mesh BVH needs {ss} traversal stack slots (> "
+                    f"{MAX_STACK_SLOTS}): pathologically deep tree - rebuild "
+                    "with a larger leaf size or simplify the mesh"
+                )
             handles.append(
                 MeshHandle(
-                    node_offset=len(handles),
+                    node_offset=node_off,
+                    num_nodes=wide.num_nodes,
                     tri_offset=tri_off,
                     num_tris=n_padded,
                     real_tris=int(len(m.indices)),
                     area=float(m.area),
-                    root_lower=tuple(float(x) for x in root_lower),
-                    root_upper=tuple(float(x) for x in root_upper),
+                    root_lower=tuple(float(x) for x in wide.root_lower),
+                    root_upper=tuple(float(x) for x in wide.root_upper),
+                    stack_slots=ss,
                 )
             )
+            node_off += wide.num_nodes
             tri_off += n_padded
+
+        if node_rows_list:
+            node_rows = np.concatenate(node_rows_list, axis=0)
+        else:  # empty pool: one terminal row whose NaN boxes never hit
+            node_rows = np.full((1, NODE_ROW_WIDTH), np.nan, np.float32)
+            node_rows[0, NODE_WORD_COL:] = 0.0
+            node_rows[0, NODE_SKIP_COL] = np.int32(-1).view(np.float32)
 
         def planes9(k0, k1, k2):
             cols = []
@@ -364,7 +377,27 @@ class Scene:
                 cols.extend(t(np.ascontiguousarray(a[:, i])) for i in range(3))
             return tuple(cols)
 
+        def block_rows():
+            """(B, 192): per block 16 x v0x, 16 x v0y, ..., 16 x v2z, then
+            48 columns of padding."""
+            if not tri_arrays["v0"]:
+                return np.zeros((1, BLOCK_SIZE * 12), np.float32)
+            comps = [
+                np.concatenate(tri_arrays[key])[:, i]
+                for key in ("v0", "v1", "v2")
+                for i in range(3)
+            ]
+            n_blocks = comps[0].shape[0] // BLOCK_SIZE
+            out = np.zeros((n_blocks, BLOCK_SIZE * 12), np.float32)
+            for g, comp in enumerate(comps):
+                out[:, BLOCK_SIZE * g:BLOCK_SIZE * (g + 1)] = comp.reshape(
+                    n_blocks, BLOCK_SIZE
+                )
+            return out
+
         pool = MeshPool(
+            node_rows=t(node_rows),
+            block_rows=t(block_rows()),
             tri_cdf=t(
                 np.concatenate(tri_arrays["cdf"]) if tri_arrays["cdf"]
                 else np.zeros((1,), np.float32)
@@ -429,8 +462,10 @@ class Scene:
             prim_type=t([p.type for p in prims], torch.int32),
             prim_light_samples=t([p.light_samples for p in prims], torch.int32),
             prim_local_area=t(local_area),
+            prim_bump=t([[p.material.bump, p.material.bump_tile] for p in prims]),
             prim_static=tuple(prim_static),
             light_indices=tuple(
                 i for i, p in enumerate(prims) if p.light_samples > 0
             ),
+            has_bump=any(p.material.bump > 0.0 for p in prims),
         )
