@@ -24,10 +24,12 @@ Phases, each fatal on failure (exit code 1):
    versions on the card: the 524k-triangle sphere with 65,536 parallel
    rays, envmesh's first diffuse bounce and many_mesh's instance batch
    (per-lane offsets), each captured from a render pass on the card;
+   each record names its launch geometry and its share of the bound;
 7. big meshes: envmesh on the card against the CPU at equal draws, then
    the big-mesh forward path (envmesh 512x512 depth 4 at 16 spp,
    many_mesh 512x512 depth 2, instances16 512x512 depth 3) with K3/K4's
-   counts reset just before and read just after;
+   counts reset just before and read just after; then one pass of each
+   under the profiler: the walks' device time inside the pass;
 8. the gradient step (``render_loss_and_grads``) on cornell and envmesh
    512x512 depth 4: card against CPU at equal draws at 64x64, peak
    memory, the fwd+bwd / fwd ratio at matched spp and the backward's top
@@ -118,7 +120,8 @@ def smi_name_and_limit() -> str:
 def ptxas_summary(log: str):
     """(kernel<template args>, registers, stack frame bytes, spill store
     bytes, spill load bytes) of each kernel instance in nvcc's -Xptxas -v
-    output. A BVH walk's per-thread stack lives in its stack frame."""
+    output. A local-memory array (such as a per-thread stack) shows as a
+    stack frame."""
     rows, inst, frame = [], None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d(nlm_[a-z]+_kernel)I((?:Li\d+E)+)E", line)
@@ -480,14 +483,18 @@ def main_inputs_phase(ops_nlm, plain, img, aov):
 # --------------------------------------------------------- BVH walks (K3/K4)
 
 
-def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int):
+def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int, culled: int = 0):
     """(bytes, f32 operations) of one walk, counted from the plain walk on
     the same inputs: each node row and leaf block the walk reads, read
     once, and each lane's ray (and offsets) in and result out; 16 slab
-    tests a node arrival, 16 triangle tests a block test. Also the bytes
-    if every arrival and block test read its row from device memory
-    (``visit_bytes``: what a walk without any cache would move)."""
-    lane = lanes * (RAY_BYTES + (OFFSET_BYTES if per_lane else 0) + out_bytes)
+    tests a node arrival, 16 triangle tests a block test. ``culled`` of
+    the lanes have tmax <= 0 or NaN: their answer is fixed by tmax alone,
+    so each counts its tmax read and its result written, and ``stats``
+    holds the walk of the other lanes. Also the bytes if every arrival
+    and block test read its row from device memory (``visit_bytes``:
+    what a walk without any cache would move)."""
+    lane = ((lanes - culled) * (RAY_BYTES + (OFFSET_BYTES if per_lane else 0) + out_bytes)
+            + culled * (4 + out_bytes))
     nbytes = (int(stats["node_rows"].sum()) * NODE_BYTES
               + int(stats["block_rows"].sum()) * BLOCK_BYTES + lane)
     visit_bytes = stats["visits"] * NODE_BYTES + stats["blocks"] * BLOCK_BYTES + lane
@@ -515,6 +522,31 @@ class CaptureWalks:
     def __exit__(self, *exc):
         for k, fn in self.orig.items():
             setattr(self.ops, k, fn)
+
+
+def walk_bounds(plain_walk, args, stats_all, out_bytes: int):
+    """(bound ms, bound by, culled lanes, bound ms counting every lane as
+    walked) of one walk: the bound counts a lane with tmax <= 0 or NaN as
+    its tmax read and its result written (no ray, offsets or root row);
+    the last number is the count without that correction."""
+    pool, noff, toff, o, d, tmax, slots = args
+    per_lane = torch.is_tensor(noff)
+    lanes = o.shape[0]
+    live = tmax > 0
+    culled = lanes - int(live.sum())
+    stats = stats_all
+    if culled:
+        stats = {}
+        noff, toff = (x[live] if torch.is_tensor(x) else x for x in (noff, toff))
+        plain_walk(pool, noff, toff, o[live], d[live], tmax[live], stack_slots=slots,
+                   stats=stats)
+        if "node_rows" not in stats:  # no live lane: nothing walked
+            stats = dict(visits=0, blocks=0, node_rows=torch.zeros(1, dtype=torch.bool),
+                         block_rows=torch.zeros(1, dtype=torch.bool))
+    work, _ = bvh_work(stats, lanes, per_lane, out_bytes, culled)
+    bound_ms, bound_by = bound(work)
+    work_all, _ = bvh_work(stats_all, lanes, per_lane, out_bytes)
+    return bound_ms, bound_by, culled, bound(work_all)[0]
 
 
 def check_walk(ops_bvh, plain_walk, name, args, tag):
@@ -549,16 +581,21 @@ def check_walk(ops_bvh, plain_walk, name, args, tag):
     def run_plain():
         plain_walk(pool, noff, toff, o, d, tmax, stack_slots=slots)
 
+    geo = ops_bvh.last_geometry[name]
     kernel_ms = device_ms(kernel, [args])
     kernel_call_ms = call_ms(kernel, [args])
     plain_ms = _event_ms(run_plain, 2)
-    work, visit_bytes = bvh_work(stats, lanes, per_lane, 8 if name == "bvh_closest" else 1)
-    bound_ms, bound_by = bound(work)
+    out_bytes = 8 if name == "bvh_closest" else 1
+    _, visit_bytes = bvh_work(stats, lanes, per_lane, out_bytes)
+    bound_ms, bound_by, culled, bound_all_ms = walk_bounds(plain_walk, args, stats, out_bytes)
     rec = dict(
         kernel=name, shape=tag, lanes=lanes, per_lane_offsets=per_lane,
         hit_share=hit_share, mismatched=mismatched, max_abs_err=err,
         kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+        culled_lanes=culled, bound_ms_every_lane_walked=bound_all_ms,
+        rays_per_block=geo["rays_per_block"], smem_bytes=geo["smem_bytes"],
+        grid=geo["grid"],
         mrays_per_s=lanes / kernel_ms / 1e3, visits_per_lane=stats["visits"] / lanes,
         blocks_per_lane=stats["blocks"] / lanes,
         rows_read=[int(stats["node_rows"].sum()), int(stats["block_rows"].sum())],
@@ -597,12 +634,12 @@ def sphere_workload(dev):
     return (flat.pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
 
 
-def bvh_kernel_phase(dev):
-    """K3 and K4 against their plain versions on three inputs: the 524k
-    sphere, envmesh's first diffuse bounce (captured from a 512x512 pass)
-    and many_mesh's instance batches (captured from a 512x512 pass: the
-    shortlist rounds' lanes with per-lane offsets; the NEE shadow rays)."""
-    from tinsel_tpu_torch.accel import traverse as plain
+def bvh_inputs(dev):
+    """The walks' inputs on the card: the 524k sphere, envmesh's first
+    diffuse bounce (captured from a 512x512 pass) and many_mesh's instance
+    batches (captured from a 512x512 pass: the shortlist rounds' lanes
+    with per-lane offsets; the NEE shadow rays). {tag: {"closest": args,
+    "any": args}}, args as the wrappers take them."""
     from tinsel_tpu_torch.core.sampling import GeneratorUniforms
     from tinsel_tpu_torch.ops import bvh as ops_bvh
     from tinsel_tpu_torch.render.camera import CameraParams
@@ -621,6 +658,15 @@ def bvh_kernel_phase(dev):
             inputs[name] = {"closest": closest[1]}
         else:
             inputs[name] = {"closest": closest[0], "any": anyh[0]}
+    return inputs
+
+
+def bvh_kernel_phase(dev):
+    """K3 and K4 against their plain versions on ``bvh_inputs``."""
+    from tinsel_tpu_torch.accel import traverse as plain
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+
+    inputs = bvh_inputs(dev)
     recs = {"bvh_closest": [], "bvh_any": []}
     for tag, ins in inputs.items():
         for kernel in ("bvh_closest", "bvh_any"):
@@ -634,6 +680,11 @@ def bvh_kernel_phase(dev):
 
 
 # ---------------------------------------------------------- big meshes
+
+
+def spp_per_pass(spp: int) -> int:
+    """Samples a pass of about 1M rays takes at BIG_W x BIG_H."""
+    return max(1, min(spp, (1 << 20) // (BIG_W * BIG_H)))
 
 
 def big_scenes():
@@ -674,7 +725,9 @@ def bigmesh_equal_draw_phase(dev):
 def bigmesh_path(ops_bvh, dev):
     """The big-mesh forward path: each scene flattened (set-up), then
     accumulated pass by pass as ``render`` does, K3/K4 counts reset just
-    before the path and read just after."""
+    before the path and read just after. Then one pass of each scene under
+    the profiler: the walk kernels' device time inside it, beside the
+    pass's device busy time and its ms in the timed run."""
     from tinsel_tpu_torch.core.color import resolve
     from tinsel_tpu_torch.core.sampling import GeneratorUniforms
     from tinsel_tpu_torch.render.camera import CameraParams
@@ -693,7 +746,7 @@ def bigmesh_path(ops_bvh, dev):
     for name, depth, spp in BIG_SCENES:
         flat, cam = flats[name]
         before = dict(ops_bvh.launch_counts)
-        spp_pass = max(1, min(spp, (1 << 20) // (BIG_W * BIG_H)))
+        spp_pass = spp_per_pass(spp)
         step = make_accumulate_fn(scenes[name].options, spp_pass)
         source = GeneratorUniforms(0, dev)
         torch.cuda.synchronize()
@@ -711,7 +764,7 @@ def bigmesh_path(ops_bvh, dev):
         rays = BIG_W * BIG_H * depth * (1 + n_lights) * spp
         per_scene[name] = dict(
             depth=depth, spp=spp, render_s=secs, ms_per_spp=secs * 1e3 / spp,
-            rays_per_s=rays / secs, image_mean=mean,
+            pass_ms=secs * 1e3 / (spp // spp_pass), rays_per_s=rays / secs, image_mean=mean,
             launches={k: v - before[k] for k, v in ops_bvh.launch_counts.items()},
         )
     launches = dict(ops_bvh.launch_counts)
@@ -720,7 +773,43 @@ def bigmesh_path(ops_bvh, dev):
               launches=launches))
     if min(launches.values()) < 1:
         fail(f"big-mesh path: a BVH kernel was never launched: {launches}")
+    walks_in_pass(dev, scenes, flats, per_scene)
     return launches
+
+
+def walks_in_pass(dev, scenes, flats, per_scene):
+    """Device time of the bvh_* kernels inside one pass of each big-mesh
+    scene, from torch.profiler's records of the card's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.render.renderer import make_accumulate_fn
+
+    rec = {}
+    for name, _, spp in BIG_SCENES:
+        flat, cam = flats[name]
+        step = make_accumulate_fn(scenes[name].options, spp_per_pass(spp))
+        accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(accum, flat, cam, GeneratorUniforms(4, dev), 0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        walks = [e for e in kernels if "bvh_" in e.key]
+        walk_ms = sum(e.self_device_time_total for e in walks) / 1e3
+        rec[name] = dict(
+            pass_ms_timed_run=per_scene[name]["pass_ms"], profiled_wall_ms=wall_ms,
+            device_busy_ms=busy if busy > 0 else "not measured",
+            walk_device_ms=walk_ms if busy > 0 else "not measured",
+            walk_launches=sum(e.count for e in walks),
+            walk_share_of_pass=walk_ms / per_scene[name]["pass_ms"] if busy > 0 else None,
+            walk_share_of_busy=walk_ms / busy if busy > 0 else None,
+        )
+    emit(dict(phase="bigmesh_walks_in_pass", size=f"{BIG_W}x{BIG_H}", scenes=rec))
 
 
 # ------------------------------------------------------------- gradients

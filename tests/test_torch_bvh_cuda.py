@@ -10,8 +10,14 @@ installed, without the suite's conftest:
 
 Tolerance: none. csrc/bvh.cu is compiled with -fmad=false, so the kernels
 round every product and sum as the plain version's separate torch ops do,
-and t and the winning triangle are equal bit for bit.
+and t and the winning triangle are equal bit for bit. The cases aim at
+what a half-warp per ray can get wrong: ties in t within a block and
+across leaf children, shared edges and vertices, part-filled blocks,
+offsets that change within a warp, stack overflow, and culled lanes
+(tmax 0, -0.0, NaN) beside +inf ones.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -72,12 +78,20 @@ def _per_lane(handles, n, dev):
             max(h.stack_slots for h in handles))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [1, 127, 4099])
-def test_kernels_equal_plain_per_lane_offsets(cuda, lanes):
-    pool, handles = _pool(cuda)
-    o, d, tmax = (torch.from_numpy(a).to(cuda) for a in _rays(lanes, lanes))
-    noff, toff, slots = _per_lane(handles, lanes, cuda)
+def _with_culled(tmax, seed):
+    """A fifth of the lanes culled with tmax 0, -0.0 or NaN (the kernels'
+    early exit), and some +inf, mixed within every warp."""
+    rng = np.random.default_rng(seed)
+    tmax = tmax.copy()
+    pick = rng.random(tmax.shape[0])
+    tmax[pick < 0.2] = rng.choice(np.array([0.0, -0.0, np.nan, np.inf], np.float32),
+                                  int((pick < 0.2).sum()))
+    return tmax
+
+
+def _assert_equal_plain(pool, noff, toff, o, d, tmax, slots):
+    """Both kernels, one launch each, against both plain walks: equal bit
+    for bit; culled lanes (tmax <= 0 or NaN) miss."""
     ops.reset_launch_counts()
     t, tri = ops.closest_hit(pool, noff, toff, o, d, tmax, slots)
     occ = ops.any_hit(pool, noff, toff, o, d, tmax, slots)
@@ -88,25 +102,185 @@ def test_kernels_equal_plain_per_lane_offsets(cuda, lanes):
     assert torch.equal(t, t_ref)
     assert torch.equal(tri, tri_ref)
     assert torch.equal(occ, occ_ref)
-    assert not occ[tmax == 0].any() and not torch.isfinite(t[tmax == 0]).any()
+    culled = ~(tmax > 0)
+    assert not occ[culled].any() and not torch.isfinite(t[culled]).any()
+    assert (tri[culled] == -1).all()
+    return t, tri, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("culled", [False, True])
+@pytest.mark.parametrize("lanes", [1, 7, 9, 127, 4099])
+def test_kernels_equal_plain_per_lane_offsets(cuda, lanes, culled):
+    """Lane counts that leave a block part-filled (8 rays a block), and
+    offsets that change from ray to ray within a warp."""
+    pool, handles = _pool(cuda)
+    o, d, tmax = _rays(lanes, lanes)
+    if culled:
+        tmax = _with_culled(tmax, lanes)
+    o, d, tmax = (torch.from_numpy(a).to(cuda) for a in (o, d, tmax))
+    noff, toff, slots = _per_lane(handles, lanes, cuda)
+    t, _, _ = _assert_equal_plain(pool, noff, toff, o, d, tmax, slots)
     if lanes > 1000:
         assert 0.2 < float(torch.isfinite(t).float().mean()) < 0.9
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mesh", [0, 1, 2])
-def test_kernels_equal_plain_scalar_offsets(cuda, mesh):
+@pytest.mark.parametrize("mesh,lanes", [(0, 2048), (1, 2048), (2, 2048),
+                                        (0, 65536)])  # the soup at a full launch
+def test_kernels_equal_plain_scalar_offsets(cuda, mesh, lanes):
     pool, handles = _pool(cuda)
     h = handles[mesh]
-    o, d, tmax = (torch.from_numpy(a).to(cuda) for a in _rays(2048, 7 + mesh))
-    got = ops.closest_hit(pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
-    want = plain.intersect_mesh(pool, h.node_offset, h.tri_offset, o, d, tmax,
-                                stack_slots=h.stack_slots)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    occ = ops.any_hit(pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
-    assert torch.equal(occ, plain.intersect_mesh_any(pool, h.node_offset, h.tri_offset, o, d,
-                                                      tmax, stack_slots=h.stack_slots))
+    o, d, tmax = _rays(lanes, 7 + mesh)
+    o, d, tmax = (torch.from_numpy(a).to(cuda) for a in (o, d, _with_culled(tmax, mesh)))
+    _assert_equal_plain(pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
+
+
+def _sequential(pool, node_offset, tri_offset, o, d, tmax, slots, any_hit):
+    """The walk one ray at a time, in csrc/bvh.cu's order, with torch ops
+    on the CPU: a push past ``slots`` entries is dropped and a pop past
+    them ends the walk (the plain lockstep walk does not take a stack
+    smaller than its walks need)."""
+    pool = dataclasses.replace(pool, node_rows=pool.node_rows.cpu(),
+                               block_rows=pool.block_rows.cpu())
+    lo, hi, words = plain._decode_nodes(pool.node_rows)
+    o, d, tmax = o.cpu(), d.cpu(), tmax.cpu()
+    rd = plain._safe_rcp3(d)
+    n = o.shape[0]
+    noff = plain._lanes(node_offset, n, "cpu").tolist()
+    bbase = (plain._lanes(tri_offset, n, "cpu") // 16).tolist()
+    t_out = torch.full((n,), float("inf"))
+    tri_out = torch.full((n,), -1, dtype=torch.int32)
+    for i in range(n):
+        best_t, best_tri = float(tmax[i]), -1
+        stack, sp, cur, lc, ic = [0] * slots, 0, 0, 0, 0
+        while cur >= 0:
+            node = noff[i] + cur
+            t0 = (lo[node] - o[i][:, None]) * rd[i][:, None]  # (3, 16)
+            t1 = (hi[node] - o[i][:, None]) * rd[i][:, None]
+            near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            tn = torch.maximum(torch.maximum(near[0], near[1]),
+                               torch.maximum(near[2], torch.zeros(16)))
+            tf = torch.minimum(torch.minimum(far[0], far[1]), far[2])
+            tn = torch.where(tn <= tf, tn, float("nan")).tolist()  # NaN: a miss
+            w = words[node].tolist()
+            for c in range(lc, 16):  # leaf children, each under the current best t
+                if w[c] >= 0 or not tn[c] < best_t:
+                    continue
+                b = pool.block_rows[bbase[i] + ~w[c]].reshape(12, 16)
+                hit, t = plain._tri_hit(b[0:3], b[3:6], b[6:9], o[i], d[i])
+                t = torch.where(hit & (t < best_t), t, plain.INF)
+                if float(t.min()) < best_t:
+                    best_t, best_tri = float(t.min()), ~w[c] * 16 + int(t.argmin())
+                    if any_hit:
+                        break
+            if any_hit and best_tri >= 0:
+                break
+            hits = [c for c in range(ic, 16) if w[c] >= 0 and tn[c] < best_t]
+            if hits:
+                if len(hits) > 1:
+                    if sp < slots:
+                        stack[sp] = (cur << 4) | hits[1]
+                    sp += 1
+                cur, ic, lc = w[hits[0]], 0, 0
+            elif sp > 0:
+                sp -= 1
+                e = stack[sp] if sp < slots else -1
+                cur, ic, lc = (-1 if e < 0 else e >> 4), e & 15, 16
+            else:
+                cur = -1
+        if best_tri >= 0:
+            t_out[i], tri_out[i] = best_t, best_tri
+    return (tri_out >= 0) if any_hit else (t_out, tri_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 2])
+def test_stack_overflow_as_the_sequential_walk(cuda, slots):
+    """The soup's walks need 2 stack entries: with 1 the pushes past it
+    are dropped; with 2 the stack fits exactly."""
+    pool, handles = _pool(cuda)
+    h = handles[0]
+    assert h.stack_slots == 2
+    o, d, tmax = _rays(512, 11)
+    o, d, tmax = (torch.from_numpy(a).to(cuda) for a in (o, d, _with_culled(tmax, 11)))
+    args = (pool, h.node_offset, h.tri_offset, o, d, tmax, slots)
+    t, tri = ops.closest_hit(*args)
+    occ = ops.any_hit(*args)
+    t_ref, tri_ref = _sequential(*args, any_hit=False)
+    assert torch.equal(t.cpu(), t_ref) and torch.equal(tri.cpu(), tri_ref)
+    assert torch.equal(occ.cpu(), _sequential(*args, any_hit=True))
+    if slots == h.stack_slots:
+        want = plain.intersect_mesh(pool, h.node_offset, h.tri_offset, o, d, tmax,
+                                    stack_slots=slots)
+        assert torch.equal(t, want[0]) and torch.equal(tri, want[1])
+
+
+def _duplicates():
+    """40 copies of one triangle and 24 triangles twice each: equal t in
+    one block and across leaf children of one node."""
+    rng = np.random.default_rng(0)
+    base = np.array([[-1, 0, -1], [1, 0, -1], [0, 0, 1]], np.float32)
+    tris = [base] * 40
+    for _ in range(24):
+        c = rng.uniform(-2, 2, 3).astype(np.float32)
+        tri = c + rng.normal(size=(3, 3)).astype(np.float32) * 0.3
+        tri[:, 1] = rng.uniform(0.5, 1.5)
+        tris += [tri, tri]
+    pos = np.concatenate(tris).astype(np.float32)
+    return model.Mesh(pos, np.arange(len(pos), dtype=np.int32).reshape(-1, 3))
+
+
+@pytest.mark.cuda
+def test_ties_go_to_the_first_slot(cuda):
+    sc = model.Scene()
+    sc.add_primitive(model.Primitive(type=model.MESH, mesh=_duplicates()))
+    flat = sc.flatten(device=cuda)
+    h = flat.prim_static[0].mesh
+    rng = np.random.default_rng(1)
+    n = 4096
+    o = np.stack([rng.uniform(-2.5, 2.5, n), np.full(n, 3.0), rng.uniform(-2.5, 2.5, n)], -1)
+    d = np.concatenate([np.tile([[0.0, -1.0, 0.0]], (n // 2, 1)),
+                        rng.normal(size=(n // 2, 3)) * 0.2 + [0.0, -1.0, 0.0]])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (o, d))
+    tmax = torch.full((n,), float("inf"), device=cuda)
+    t, tri, _ = _assert_equal_plain(flat.pool, h.node_offset, h.tri_offset, o, d, tmax,
+                                    h.stack_slots)
+    # the case is real: every lane that hits finds two or more triangles
+    # at its t (15% of the lanes)
+    va, vb, vc = flat.pool.gather_tri(torch.arange(h.tri_offset, h.tri_offset + h.num_tris,
+                                                   device=cuda))
+    hit, tt = plain._tri_hit(
+        tuple(v[:, None, i] for v, i in ((va, 0), (va, 1), (va, 2))),
+        tuple(v[:, None, i] for v, i in ((vb, 0), (vb, 1), (vb, 2))),
+        tuple(v[:, None, i] for v, i in ((vc, 0), (vc, 1), (vc, 2))),
+        tuple(o[None, :, i] for i in range(3)), tuple(d[None, :, i] for i in range(3)))
+    ties = (hit & (tt == t[None, :])).sum(0) >= 2
+    assert torch.equal(ties, torch.isfinite(t)) and float(ties.float().mean()) > 0.1
+
+
+@pytest.mark.cuda
+def test_rays_through_shared_edges_and_vertices(cuda):
+    """Rays straight down and tilted onto the disc fan's centre, its rim
+    vertices and points of its spokes, each shared by two triangles."""
+    pool, handles = _pool(cuda)
+    h = handles[2]
+    a = np.linspace(0.0, 2.0 * np.pi, 40, endpoint=False)
+    rim = np.stack([np.cos(a), np.zeros_like(a), np.sin(a)], -1).astype(np.float32)
+    targets = np.concatenate([np.zeros((1, 3), np.float32), rim,
+                              *(s * rim for s in (np.float32(0.25), np.float32(0.5)))])
+    rng = np.random.default_rng(2)
+    tilt = np.concatenate([np.zeros((1, 3)), rng.normal(size=(7, 3)) * 0.3])
+    d = np.repeat(tilt + [0.0, -1.0, 0.0], len(targets), 0)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(targets, (len(tilt), 1)) - 2.0 * d
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (o, d))
+    tmax = torch.full((o.shape[0],), float("inf"), device=cuda)
+    t, _, _ = _assert_equal_plain(pool, h.node_offset, h.tri_offset, o, d, tmax,
+                                  h.stack_slots)
+    # rim vertices lie on the disc's boundary: some tilted rays miss there
+    assert float(torch.isfinite(t).float().mean()) > 0.7
 
 
 @pytest.mark.cuda

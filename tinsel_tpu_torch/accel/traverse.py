@@ -15,8 +15,8 @@ step, following ``_step`` (``tinsel_tpu/accel/traverse.py:390-489``) and
   ``cur << 4 | slot``; with none it pops, re-tests the popped node's
   children under the tightened best t and resumes at the stored slot.
 
-These are what the CUDA kernels K3 and K4 (``csrc/bvh.cu``) compute, one
-thread per lane; ``ops/bvh.py`` dispatches between them. The JAX package's
+These are what the CUDA kernels K3 and K4 (``csrc/bvh.cu``) compute, a
+half-warp per lane; ``ops/bvh.py`` dispatches between them. The JAX package's
 TPU machinery (tiles, two-phase compaction, packets) is not ported: it
 changes which of two triangles at exactly equal t wins, never t. Meshes
 of at most ``BLOCK_SIZE`` triangles take the brute sweep instead.

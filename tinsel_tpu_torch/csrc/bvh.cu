@@ -2,38 +2,86 @@
 // (any hit with t < tmax).
 //
 // Replaces: tinsel_tpu/accel/traverse.py:761 intersect_mesh (its walk
-// _run_tiled / _traverse_tile / _step, :390-489) and :903
-// intersect_mesh_any (_traverse_tile_any, :811). In the JAX package these
-// are pure JAX lockstep loops; here each lane is one thread that walks
-// its own sub-BVH to the end.
+// _run_tiled :635 / _traverse_tile :491 / _step :390) and :903
+// intersect_mesh_any (_traverse_tile_any :811). In the JAX package these
+// are pure JAX lockstep loops over tiles of rays.
 //
 // Layout (accel/build.py, built on the host):
-//   node row (72 floats): cols [0,16) x, [16,32) y, [32,48) z child boxes,
-//     one u32 per child and axis with bf16(upper) in the high half and
-//     bf16(lower) in the low half, both rounded outward; empty slots are
-//     bf16 NaN and always miss; cols [48,64) i32 child words: >= 0 an
+//   node row (72 floats, 288 B): cols [0,16) x, [16,32) y, [32,48) z child
+//     boxes, one u32 per child and axis with bf16(upper) in the high half
+//     and bf16(lower) in the low half, both rounded outward; empty slots
+//     are bf16 NaN and always miss; cols [48,64) i32 child words: >= 0 an
 //     internal child, < 0 the leaf block ~word.
-//   block row (192 floats): 16 x v0x, 16 x v0y, 16 x v0z, 16 x v1x, ...,
-//     16 x v2z, 48 pad.
+//   block row (192 floats, 768 B): 16 x v0x, 16 x v0y, 16 x v0z, 16 x v1x,
+//     ..., 16 x v2z, 48 pad.
 //
 // The walk (the plain version is accel/traverse.py::_walk): at a node the
-// lane tests, in slot order, each hit leaf child's 16 triangles under its
+// ray tests, in slot order, each hit leaf child's 16 triangles under its
 // current best t (strict <, first slot on a tie); then it descends into
 // the first hit internal child at slot >= ic, pushing one compressed
 // entry (cur << 4 | next hit internal slot) if there is one; with none it
 // pops, re-tests that node's children under the tightened best t and
-// resumes at the stored slot. The stack is per thread, in local memory,
-// at most 128 entries (MeshHandle.stack_slots bounds it exactly).
+// resumes at the stored slot. MeshHandle.stack_slots bounds the stack.
 //
-// Bound: a walk is a chain of dependent loads (node row -> leaf block ->
-// next node), so it is bounded by memory latency and divergence more than
-// by bytes or operations; this kernel is the simple one-thread-per-lane
-// form. Rows go through the read-only cache (__ldg).
+// What bounds it on this card: a walk is a chain of dependent loads (node
+// row -> leaf block -> next node row) of a few hundred bytes each, so it
+// is bounded by the latency of each step and by how many walks are in
+// flight, far below the card's byte and operation rates. With one thread
+// per ray a walk issues about 32 small dependent loads per node and 16
+// serial triangle tests per leaf block. Measured on
+// the H100: with fewer blocks per SM the walk slows in proportion, so
+// latency bounds it; each step's latency is the row's round trip plus the
+// dependent slab or triangle arithmetic and the group's ballots.
+//
+// The design: a half-warp (16 lanes) per ray, one lane per child slot and
+// per triangle slot, so that every row arrives in one round trip.
+//   * Node step: lane c holds child c's x, y, z box words and its child
+//     word: four coalesced 64-byte runs of the row, issued together (a
+//     288-byte row starts on a 32-byte sector when the table's base does,
+//     as torch's allocations do, so each run is two sectors). With a
+//     scalar node offset the root row comes in the same round trip as
+//     the ray. Lane c computes its slab tn, tf once; one OR-reduction over
+//     the group gives the leaf candidates (bits 0-15) and the internal
+//     ones at slot >= ic (bits 16-31) under the current best t.
+//   * Leaf children in slot order: the lowest candidate slot c is tested
+//     next. Its block is tested by the 16 lanes at once, lane j on
+//     triangle j (nine coalesced 64-byte runs); every lane reads c's word
+//     from the row again (in L1 by then) rather than shuffling it. Without
+//     a hit the candidates stand; after a hit both masks are taken again
+//     under the tightened best t, the leaves from slot c + 1 on.
+//   * The block's combine: the smallest t over the lanes with a hit and
+//     t < best_t (one shuffle for a single hit, else a 4-step shuffle
+//     min), then the lowest such lane with that t (a ballot). That is the
+//     sequential loop's winner (strict <, first slot on a tie) and
+//     _block_test's tt.min(dim=1), in any order of the 16 tests. Blocks
+//     stay in slot order: whether a block is tested at all depends on the
+//     best t the blocks before it left. K4 ends the walk when any lane has
+//     a hit with t < tmax.
+//   * Internal children: the first and second hit slots >= ic under the
+//     best t after the leaves. Push, descend and pop as the sequential
+//     walk does, with its overflow behaviour when slots is smaller than a
+//     walk needs (a push past the stack is dropped, a pop past it ends the
+//     walk).
+//   * The stack lives in shared memory, `slots` 4-byte entries per ray:
+//     lane 0 of the group pushes and pops, the group reads the entry back
+//     by a shuffle. No local-memory frame.
+//   * Culled rays: tn >= 0 or NaN, so with tmax <= 0 or NaN no child
+//     passes tn < best_t and the result is (+inf, -1) / false. Such a ray
+//     writes it without loading its ray, offsets or any row.
+//   * One loop iteration is one node (its leaf blocks, then descend or
+//     pop), so the two half-warps of a warp, which walk different rays,
+//     run one instruction stream and diverge only in their numbers of
+//     leaf blocks and nodes.
+//   * Rows are addressed by 32-bit float offsets from the tables' bases
+//     (ops/bvh.py refuses tables of 2^32 floats or more), which keeps the
+//     walk at 48 registers: ten 128-thread blocks per SM.
+// The launch geometry (threads, rays per block, shared bytes, grid) comes
+// from ops/bvh.py::launch_geometry; the entry points check it.
 //
 // Rounding: this file is compiled with -fmad=false, so every product and
 // sum rounds on its own, in the plain version's order, and t and the
 // winning triangle equal the plain version's bit for bit. Division is
-// IEEE (no fast math).
+// IEEE (no fast math). min/max propagate NaN as torch.minimum does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,17 +94,41 @@ constexpr int BS = 16;         // triangles per leaf block
 constexpr int BROW = 12 * BS;  // floats per block row
 constexpr int SLOT_BITS = 4;
 constexpr int MAX_STACK = 128;
+constexpr int GROUP = 16;                    // lanes per ray
+constexpr int THREADS = 128;                 // threads per block
+constexpr int RAYS = THREADS / GROUP;        // rays per block
+static_assert(K == GROUP && BS == GROUP, "one lane per child and per triangle");
+static_assert((ROW * 4) % 32 == 0, "node rows start on 32-byte sectors");
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, rx, ry, rz;
 };
 
+// The 16 lanes of one ray inside their warp.
+struct Group {
+  int lane;       // 0..15: child slot and triangle slot
+  int shift;      // 0 or 16: the group's first lane in the warp
+  __device__ explicit Group(int tid) : lane(tid & (GROUP - 1)), shift(tid & GROUP) {}
+  __device__ __forceinline__ unsigned mask() const { return 0xFFFFu << shift; }
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return (__ballot_sync(mask(), p) >> shift) & 0xFFFFu;
+  }
+  template <typename T>
+  __device__ __forceinline__ T shfl(T v, int src) const {
+    return __shfl_sync(mask(), v, src, GROUP);
+  }
+};
+
 // torch.minimum / torch.maximum: NaN if either operand is NaN
 __device__ __forceinline__ float nmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float safe_rcp(float d) {
@@ -65,32 +137,26 @@ __device__ __forceinline__ float safe_rcp(float d) {
   return 1.0f / x;
 }
 
-__device__ __forceinline__ int child_word(const float* row, int c) {
-  return __float_as_int(__ldg(row + 3 * K + c));
-}
-
-// slab test of child c: tn <= tf and tn < best_t
-__device__ __forceinline__ bool child_hit(const float* row, int c, const Ray& r,
-                                          float best_t) {
-  const uint32_t bx = __float_as_uint(__ldg(row + c));
-  const uint32_t by = __float_as_uint(__ldg(row + K + c));
-  const uint32_t bz = __float_as_uint(__ldg(row + 2 * K + c));
+// slab test of one child box: returns tn <= tf, and tn
+__device__ __forceinline__ bool slab(uint32_t bx, uint32_t by, uint32_t bz, const Ray& r,
+                                     float& tn) {
   const float t0x = (__uint_as_float(bx << 16) - r.ox) * r.rx;
   const float t1x = (__uint_as_float(bx & 0xFFFF0000u) - r.ox) * r.rx;
   const float t0y = (__uint_as_float(by << 16) - r.oy) * r.ry;
   const float t1y = (__uint_as_float(by & 0xFFFF0000u) - r.oy) * r.ry;
   const float t0z = (__uint_as_float(bz << 16) - r.oz) * r.rz;
   const float t1z = (__uint_as_float(bz & 0xFFFF0000u) - r.oz) * r.rz;
-  const float tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmax(nmin(t0z, t1z), 0.0f));
+  tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmax(nmin(t0z, t1z), 0.0f));
   const float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
-  return tn <= tf && tn < best_t;
+  return tn <= tf;
 }
 
-// two-sided Moller-Trumbore (accel/traverse.py::_tri_hit), eps 1e-9
-__device__ __forceinline__ bool tri_hit(const float* b, int j, const Ray& r, float* t_out) {
-  const float v0x = __ldg(b + j), v0y = __ldg(b + BS + j), v0z = __ldg(b + 2 * BS + j);
-  const float v1x = __ldg(b + 3 * BS + j), v1y = __ldg(b + 4 * BS + j), v1z = __ldg(b + 5 * BS + j);
-  const float v2x = __ldg(b + 6 * BS + j), v2y = __ldg(b + 7 * BS + j), v2z = __ldg(b + 8 * BS + j);
+// two-sided Moller-Trumbore (accel/traverse.py::_tri_hit), eps 1e-9, on
+// the lane's triangle of a block (b: the block row plus the lane)
+__device__ __forceinline__ bool tri_hit(const float* b, const Ray& r, float& t) {
+  const float v0x = __ldg(b), v0y = __ldg(b + BS), v0z = __ldg(b + 2 * BS);
+  const float v1x = __ldg(b + 3 * BS), v1y = __ldg(b + 4 * BS), v1z = __ldg(b + 5 * BS);
+  const float v2x = __ldg(b + 6 * BS), v2y = __ldg(b + 7 * BS), v2z = __ldg(b + 8 * BS);
   const float abx = v1x - v0x, aby = v1y - v0y, abz = v1z - v0z;
   const float acx = v2x - v0x, acy = v2y - v0y, acz = v2z - v0z;
   const float px = r.dy * acz - r.dz * acy;
@@ -105,120 +171,175 @@ __device__ __forceinline__ bool tri_hit(const float* b, int j, const Ray& r, flo
   const float qy = tz * abx - tx * abz;
   const float qz = tx * aby - ty * abx;
   const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-  const float t = (acx * qx + acy * qy + acz * qz) * inv;
-  *t_out = t;
+  t = (acx * qx + acy * qy + acz * qz) * inv;
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
 __device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
   Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
+  r.ox = __ldg(o + 3 * i); r.oy = __ldg(o + 3 * i + 1); r.oz = __ldg(o + 3 * i + 2);
+  r.dx = __ldg(d + 3 * i); r.dy = __ldg(d + 3 * i + 1); r.dz = __ldg(d + 3 * i + 2);
   r.rx = safe_rcp(r.dx); r.ry = safe_rcp(r.dy); r.rz = safe_rcp(r.dz);
   return r;
 }
 
-// The walk shared by both kernels. ANY: stop at the first triangle with
-// t < tmax. Returns (in best_t / best_tri) the closest hit, or whether
-// any hit was found (best_tri >= 0).
+// The lane's slot of a node row: its child's x, y, z box words and its
+// child word
+struct Slot {
+  uint32_t x, y, z;
+  int w;
+};
+
+__device__ __forceinline__ Slot load_slot(const float* row, int lane) {
+  return Slot{__float_as_uint(__ldg(row + lane)), __float_as_uint(__ldg(row + K + lane)),
+              __float_as_uint(__ldg(row + 2 * K + lane)),
+              __float_as_int(__ldg(row + 3 * K + lane))};
+}
+
+// The walk of one ray by its group, shared by both kernels, from the root
+// row's slots s. ANY: stop at the first block with a triangle hit at
+// t < tmax. Returns the closest hit's tri_local (best_t its t), or -1; for
+// ANY, >= 0 if a hit was found. Every branch is uniform across the group.
+// nbase / bbase: float offsets of the mesh's first node row and leaf block.
 template <bool ANY>
-__device__ __forceinline__ void walk(const float* __restrict__ node_rows,
-                                     const float* __restrict__ block_rows,
-                                     int noff, int bbase, const Ray& r, int slots,
-                                     float& best_t, int& best_tri) {
-  int stack[MAX_STACK];
-  int sp = 0, cur = 0, lc = 0, ic = 0;
-  while (cur >= 0) {
-    const float* row = node_rows + (size_t)(noff + cur) * ROW;
+__device__ __forceinline__ int walk(const float* __restrict__ node_rows,
+                                    const float* __restrict__ block_rows, unsigned nbase,
+                                    unsigned bbase, const Ray& r, int slots, int* stack,
+                                    const Group& g, Slot s, float& best_t) {
+  int best_tri = -1;
+  int sp = 0, cur = 0, ic = 0;
+  bool leaves = true;  // false after a pop: the node's leaves were tested
+  while (true) {
+    const float* row = node_rows + (nbase + (unsigned)cur * ROW);
+    float tn;
+    const bool box = slab(s.x, s.y, s.z, r, tn);
+    const bool near = box && tn < best_t;
+    // leaf candidates in bits 0-15, internal ones (slot >= ic) in 16-31
+    const unsigned both = __reduce_or_sync(
+        g.mask(), (near && s.w < 0 && leaves ? 1u : 0u) << g.lane |
+                    (near && s.w >= 0 && g.lane >= ic ? 1u : 0u) << (GROUP + g.lane));
+    unsigned im = both >> GROUP;
     // leaf children in slot order, each under the best t of the blocks
-    // tested before it
-    for (int c = lc; c < K; ++c) {
-      const int w = child_word(row, c);
-      if (w >= 0 || !child_hit(row, c, r, best_t)) continue;
-      const int blk = ~w;
-      const float* b = block_rows + (size_t)(bbase + blk) * BROW;
-      float m = best_t;
-      int slot = -1;
-      for (int j = 0; j < BS; ++j) {
-        float t;
-        if (tri_hit(b, j, r, &t) && t < m) {
-          m = t;
-          slot = j;
-          if (ANY) break;
-        }
+    // tested before it; a chosen slot's word is read again from the row
+    // (in L1 by now) by every lane rather than shuffled
+    for (unsigned m = both & 0xFFFFu; m != 0;) {
+      const int c = __ffs(m) - 1;
+      m &= m - 1;
+      const int blk = ~__float_as_int(__ldg(row + 3 * K + c));
+      float t;
+      const bool hit =
+          tri_hit(block_rows + (bbase + (unsigned)blk * BROW + g.lane), r, t) && t < best_t;
+      const unsigned hits = g.ballot(hit);
+      if (hits == 0) continue;
+      int slot = __ffs(hits) - 1;
+      if (ANY) return blk * BS + slot;
+      float tmin;
+      if ((hits & (hits - 1)) == 0) {
+        tmin = g.shfl(t, slot);
+      } else {
+        tmin = hit ? t : __int_as_float(0x7f800000);
+#pragma unroll
+        for (int off = GROUP / 2; off > 0; off >>= 1)
+          tmin = fminf(tmin, __shfl_xor_sync(g.mask(), tmin, off, GROUP));
+        slot = __ffs(g.ballot(hit && t == tmin)) - 1;
       }
-      if (slot >= 0) {
-        best_tri = blk * BS + slot;
-        if (ANY) return;
-        best_t = m;
-      }
+      best_t = tmin;
+      best_tri = blk * BS + slot;
+      // the tightened best t: the leaf slots after c and the internal
+      // slots that still pass
+      const unsigned again = __reduce_or_sync(
+          g.mask(), (box && tn < best_t && s.w < 0 && g.lane > c ? 1u : 0u) << g.lane |
+                      (box && tn < best_t && s.w >= 0 && g.lane >= ic ? 1u : 0u)
+                          << (GROUP + g.lane));
+      m = again & 0xFFFFu;
+      im = again >> GROUP;
     }
     // internal children: descend into the first hit slot >= ic, keep the
     // next one in one stack entry
-    int first = K, second = K;
-    for (int c = ic; c < K; ++c) {
-      const int w = child_word(row, c);
-      if (w < 0 || !child_hit(row, c, r, best_t)) continue;
-      if (first == K) {
-        first = c;
-      } else {
-        second = c;
-        break;
-      }
-    }
-    if (first < K) {
-      if (second < K) {
-        if (sp < slots) stack[sp] = (cur << SLOT_BITS) | second;
+    if (im != 0) {
+      const unsigned rest = im & (im - 1);
+      if (rest != 0) {
+        if (g.lane == 0 && sp < slots) stack[sp] = (cur << SLOT_BITS) | (__ffs(rest) - 1);
         ++sp;
       }
-      cur = child_word(row, first);
+      cur = __float_as_int(__ldg(row + 3 * K + __ffs(im) - 1));
       ic = 0;
-      lc = 0;
+      leaves = true;
     } else if (sp > 0) {
       --sp;
-      const int e = sp < slots ? stack[sp] : -1;
-      cur = e < 0 ? -1 : (e >> SLOT_BITS);
+      const int e = g.shfl((g.lane == 0 && sp < slots) ? stack[sp] : -1, 0);
+      if (e < 0) break;
+      cur = e >> SLOT_BITS;
       ic = e & (K - 1);
-      lc = K;  // this node's leaves were tested before the push
+      leaves = false;  // this node's leaves were tested before the push
     } else {
-      cur = -1;
+      break;
     }
+    s = load_slot(node_rows + (nbase + (unsigned)cur * ROW), g.lane);
   }
+  return best_tri;
 }
 
-__global__ void __launch_bounds__(128)
+// One group per ray; returns the ray's tri (or -1) and leaves its t in
+// best_t. A ray whose tmax is <= 0 or NaN loads nothing else. With a
+// scalar node offset the root row is loaded together with the ray.
+template <bool ANY>
+__device__ __forceinline__ int trace(const float* __restrict__ node_rows,
+                                     const float* __restrict__ block_rows,
+                                     const float* __restrict__ origins,
+                                     const float* __restrict__ dirs, const int* __restrict__ noffs,
+                                     const int* __restrict__ toffs, int noff0, int toff0, int i,
+                                     int slots, int* stacks, const Group& g, float& best_t) {
+  if (!(best_t > 0.0f)) return -1;
+  const int noff = noffs ? __ldg(noffs + i) : noff0;
+  const int toff = toffs ? __ldg(toffs + i) : toff0;
+  const unsigned nbase = (unsigned)noff * ROW;
+  const Slot root = load_slot(node_rows + nbase, g.lane);
+  const Ray r = load_ray(origins, dirs, i);
+  int* stack = stacks + (threadIdx.x / GROUP) * slots;
+  return walk<ANY>(node_rows, block_rows, nbase, (unsigned)(toff / BS) * BROW, r, slots, stack,
+                   g, root, best_t);
+}
+
+__global__ void __launch_bounds__(THREADS)
 bvh_closest_kernel(const float* __restrict__ node_rows, const float* __restrict__ block_rows,
                    const float* __restrict__ origins, const float* __restrict__ dirs,
                    const float* __restrict__ tmax, const int* __restrict__ noffs,
                    const int* __restrict__ toffs, int noff0, int toff0, int n, int slots,
                    float* __restrict__ t_out, int* __restrict__ tri_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int stacks[];
+  const int i = blockIdx.x * RAYS + threadIdx.x / GROUP;
   if (i >= n) return;
-  const Ray r = load_ray(origins, dirs, i);
-  const int noff = noffs ? noffs[i] : noff0;
-  const int toff = toffs ? toffs[i] : toff0;
-  float best_t = tmax[i];
-  int best_tri = -1;
-  walk<false>(node_rows, block_rows, noff, toff / BS, r, slots, best_t, best_tri);
-  t_out[i] = best_tri >= 0 ? best_t : __int_as_float(0x7f800000);
-  tri_out[i] = best_tri;
+  const Group g(threadIdx.x);
+  float best_t = __ldg(tmax + i);
+  const int tri = trace<false>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0,
+                               toff0, i, slots, stacks, g, best_t);
+  if (g.lane == 0) {
+    t_out[i] = tri >= 0 ? best_t : __int_as_float(0x7f800000);
+    tri_out[i] = tri;
+  }
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS)
 bvh_any_kernel(const float* __restrict__ node_rows, const float* __restrict__ block_rows,
                const float* __restrict__ origins, const float* __restrict__ dirs,
                const float* __restrict__ tmax, const int* __restrict__ noffs,
                const int* __restrict__ toffs, int noff0, int toff0, int n, int slots,
                uint8_t* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int stacks[];
+  const int i = blockIdx.x * RAYS + threadIdx.x / GROUP;
   if (i >= n) return;
-  const Ray r = load_ray(origins, dirs, i);
-  const int noff = noffs ? noffs[i] : noff0;
-  const int toff = toffs ? toffs[i] : toff0;
-  float best_t = tmax[i];
-  int best_tri = -1;
-  walk<true>(node_rows, block_rows, noff, toff / BS, r, slots, best_t, best_tri);
-  occ_out[i] = best_tri >= 0 ? 1 : 0;
+  const Group g(threadIdx.x);
+  float best_t = __ldg(tmax + i);
+  const int tri = trace<true>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0, toff0,
+                              i, slots, stacks, g, best_t);
+  if (g.lane == 0) occ_out[i] = tri >= 0 ? 1 : 0;
+}
+
+// The geometry ops/bvh.py::launch_geometry computes, and nothing else.
+bool geometry_ok(int n, int slots, int threads, int rays_per_block, int smem, int grid) {
+  return threads == THREADS && rays_per_block == RAYS && slots >= 1 && slots <= MAX_STACK &&
+         smem == RAYS * slots * (int)sizeof(int) && n >= 1 && grid == (n + RAYS - 1) / RAYS;
 }
 
 }  // namespace
@@ -226,24 +347,23 @@ bvh_any_kernel(const float* __restrict__ node_rows, const float* __restrict__ bl
 extern "C" int tinsel_bvh_closest(const float* node_rows, const float* block_rows,
                                   const float* origins, const float* dirs, const float* tmax,
                                   const int* noffs, const int* toffs, int noff0, int toff0,
-                                  int n, int slots, int threads, float* t_out, int* tri_out,
-                                  cudaStream_t stream) {
-  if (threads != 128 || slots < 1 || slots > MAX_STACK) return 9001;
-  const int blocks = (n + threads - 1) / threads;
-  bvh_closest_kernel<<<blocks, threads, 0, stream>>>(node_rows, block_rows, origins, dirs,
-                                                     tmax, noffs, toffs, noff0, toff0, n,
-                                                     slots, t_out, tri_out);
+                                  int n, int slots, int threads, int rays_per_block, int smem,
+                                  int grid, float* t_out, int* tri_out, cudaStream_t stream) {
+  if (!geometry_ok(n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  bvh_closest_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, origins, dirs,
+                                                      tmax, noffs, toffs, noff0, toff0, n,
+                                                      slots, t_out, tri_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tinsel_bvh_any(const float* node_rows, const float* block_rows,
                               const float* origins, const float* dirs, const float* tmax,
                               const int* noffs, const int* toffs, int noff0, int toff0, int n,
-                              int slots, int threads, uint8_t* occ_out, cudaStream_t stream) {
-  if (threads != 128 || slots < 1 || slots > MAX_STACK) return 9001;
-  const int blocks = (n + threads - 1) / threads;
-  bvh_any_kernel<<<blocks, threads, 0, stream>>>(node_rows, block_rows, origins, dirs, tmax,
-                                                 noffs, toffs, noff0, toff0, n, slots,
-                                                 occ_out);
+                              int slots, int threads, int rays_per_block, int smem, int grid,
+                              uint8_t* occ_out, cudaStream_t stream) {
+  if (!geometry_ok(n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  bvh_any_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, origins, dirs, tmax,
+                                                  noffs, toffs, noff0, toff0, n, slots,
+                                                  occ_out);
   return (int)cudaGetLastError();
 }

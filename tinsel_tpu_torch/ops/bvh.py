@@ -2,18 +2,21 @@
 
 ``closest_hit`` (kernel K3, ``csrc/bvh.cu``) replaces the JAX package's
 pure-JAX walk ``tinsel_tpu/accel/traverse.py:761 intersect_mesh``
-(``_run_tiled`` / ``_traverse_tile`` / ``_step``); ``any_hit`` (K4, same
-source) replaces ``:903 intersect_mesh_any`` (``_traverse_tile_any``).
-Neither was Pallas in the JAX package: Mosaic has no per-lane gather from
-a large table, which a card does at every load.
+(``_run_tiled :635`` / ``_traverse_tile :491`` / ``_step :390``);
+``any_hit`` (K4, same source) replaces ``:903 intersect_mesh_any``
+(``_traverse_tile_any :811``). Neither was Pallas in the JAX package:
+Mosaic has no per-lane gather from a large table, which a card does at
+every load.
 
 Bound and design: the work is a data-dependent chain of dependent loads
 (a node row, then the leaf blocks it points to), so a walk is bounded by
-memory latency more than by bytes or operations. This first kernel is the
-simple one: one thread per lane, a per-thread compressed stack in local
-memory, node rows and blocks read through the read-only cache. Making it
-fast (rows in shared memory, warp-coherent or persistent walks, ray
-sorting) is later work.
+the latency of each load and the number of walks in flight, not by bytes
+or operations. The kernels give each ray a half-warp: lane c holds child
+slot c of the node and triangle c of the leaf block, so a node row or a
+block arrives in one round trip of coalesced 64-byte runs and the 16
+triangle tests run at once; the per-ray stack lives in shared memory.
+``csrc/bvh.cu``'s note gives the design and why it equals the plain walk
+bit for bit.
 
 A CPU tensor runs the plain version (``accel/traverse.py``); a CUDA tensor
 launches the kernel or raises. The walks return discrete winners and have
@@ -23,6 +26,7 @@ no gradient: the caller re-intersects the winning triangle with torch ops.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -34,9 +38,10 @@ from . import _build
 # Launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else.
 launch_counts = {"bvh_closest": 0, "bvh_any": 0}
-# lanes, threads per block and blocks of each kernel's latest launch
+# lanes and launch geometry of each kernel's latest launch
 last_geometry: dict = {}
-THREADS = 128
+GROUP = 16  # lanes per ray: one per child slot and per triangle slot
+THREADS = 128  # threads per block
 
 _entries: dict = {}
 
@@ -46,6 +51,26 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    threads: int  # threads per block
+    rays_per_block: int
+    smem_bytes: int  # dynamic shared memory: the rays' stacks
+    grid: int  # blocks; 0 for no lanes (no launch)
+
+
+def launch_geometry(lanes: int, slots: int) -> Geometry:
+    """Launch geometry of K3/K4 for ``lanes`` rays with ``slots`` stack
+    entries each: a 16-lane group per ray, 128-thread blocks, a 4-byte
+    shared-memory stack entry per slot and ray, one block per 8 rays."""
+    if lanes < 0:
+        raise ValueError(f"lanes must be >= 0, got {lanes}")
+    if not 1 <= slots <= MAX_STACK_SLOTS:
+        raise ValueError(f"stack_slots must be in [1, {MAX_STACK_SLOTS}], got {slots}")
+    rays = THREADS // GROUP
+    return Geometry(THREADS, rays, rays * slots * 4, -(-lanes // rays))
+
+
 def _entry(kernel: str):
     fn = _entries.get(kernel)
     if fn is None:
@@ -53,9 +78,10 @@ def _entry(kernel: str):
         fn = getattr(_build.load("bvh"), f"tinsel_{kernel}")
         # node_rows, block_rows, origins, dirs, tmax, node offsets (or
         # NULL), tri offsets (or NULL), the scalar offsets, lanes, stack
-        # slots, threads, out pointer(s), stream
+        # slots, threads, rays per block, shared bytes, grid, out
+        # pointer(s), stream
         outs = [p, p] if kernel == "bvh_closest" else [p]
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, *outs, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, *outs, p]
         fn.restype = i
         _entries[kernel] = fn
     return fn
@@ -95,16 +121,19 @@ def _launch(kernel: str, pool, node_offset, tri_offset, origins, dirs, tmax,
     for t in (pool.node_rows, pool.block_rows, *outs):
         if t.device != dev:
             raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
-    if not 1 <= stack_slots <= MAX_STACK_SLOTS:
-        raise ValueError(f"stack_slots must be in [1, {MAX_STACK_SLOTS}], got {stack_slots}")
+    if max(n_nodes * NODE_ROW_WIDTH, n_blocks * 12 * BLOCK_SIZE) >= 2**32:
+        raise ValueError(f"{kernel}: the kernel addresses rows by 32-bit float offsets; "
+                         f"{n_nodes} node rows and {n_blocks} blocks are too many")
+    geo = launch_geometry(r, int(stack_slots))
     noff_p, noff = _offset(node_offset, r, dev, "node_offset")
     toff_p, toff = _offset(tri_offset, r, dev, "tri_offset")
-    if r == 0:
+    if geo.grid == 0:
         return
     args = (
         pool.node_rows.data_ptr(), pool.block_rows.data_ptr(),
         origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(), noff_p, toff_p,
-        noff, toff, r, int(stack_slots), THREADS, *(o.data_ptr() for o in outs),
+        noff, toff, r, int(stack_slots), geo.threads, geo.rays_per_block,
+        geo.smem_bytes, geo.grid, *(o.data_ptr() for o in outs),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dev.index is None or dev.index == torch.cuda.current_device():
@@ -116,7 +145,7 @@ def _launch(kernel: str, pool, node_offset, tri_offset, origins, dirs, tmax,
         what = "arguments rejected by the kernel" if err == 9001 else f"CUDA error {err}"
         raise RuntimeError(f"{kernel} kernel launch failed: {what} ({r} lanes)")
     launch_counts[kernel] += 1
-    last_geometry[kernel] = dict(lanes=r, threads=THREADS, blocks=-(-r // THREADS))
+    last_geometry[kernel] = dict(lanes=r, **dataclasses.asdict(geo))
 
 
 def closest_hit_cuda(pool, node_offset, tri_offset, origins, dirs, tmax,
