@@ -33,7 +33,19 @@ Phases, each fatal on failure (exit code 1):
 8. the gradient step (``render_loss_and_grads``) on cornell and envmesh
    512x512 depth 4: card against CPU at equal draws at 64x64, peak
    memory, the fwd+bwd / fwd ratio at matched spp and the backward's top
-   kernels; then 10 steps of the inverse-rendering trainer at 512x512.
+   kernels; then 10 steps of the inverse-rendering trainer at 512x512;
+9. the rest of the integrator: K7 (the walk's step count) against its
+   plain version on envmesh's 512x512 camera rays (captured from a
+   complexity pass), envmesh's first bounce and the 524k sphere, exactly,
+   beside K3 on the same rays; K4 on envmesh's probe shadow rays
+   (tmax = +inf); card against CPU at equal draws at 64x64 (the probe-lit
+   envmesh, Cornell with power light sampling and Russian roulette, the
+   stratified and blue-noise samplers, the normals and complexity views,
+   adaptive rounds); the full-width path: ``envmesh_scene(512, 512, 4,
+   probe=True)`` at 16 spp -> ``resolve`` -> ``nlm_denoise`` with K3/K4/K1
+   counts reset just before and read just after, the same scene's
+   complexity view (K7's count) and ``adaptive_render`` at a 16-spp
+   budget; then one profiled pass of the probe scene.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -91,7 +103,14 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase or kernel record also gets ``t_s``, the
+    seconds since the script started."""
+    if "phase" in obj or "kernel" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -483,7 +502,8 @@ def main_inputs_phase(ops_nlm, plain, img, aov):
 # --------------------------------------------------------- BVH walks (K3/K4)
 
 
-def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int, culled: int = 0):
+def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int, culled: int = 0,
+             ray_bytes: int = RAY_BYTES):
     """(bytes, f32 operations) of one walk, counted from the plain walk on
     the same inputs: each node row and leaf block the walk reads, read
     once, and each lane's ray (and offsets) in and result out; 16 slab
@@ -493,7 +513,7 @@ def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int, culled: int = 0)
     holds the walk of the other lanes. Also the bytes if every arrival
     and block test read its row from device memory (``visit_bytes``:
     what a walk without any cache would move)."""
-    lane = ((lanes - culled) * (RAY_BYTES + (OFFSET_BYTES if per_lane else 0) + out_bytes)
+    lane = ((lanes - culled) * (ray_bytes + (OFFSET_BYTES if per_lane else 0) + out_bytes)
             + culled * (4 + out_bytes))
     nbytes = (int(stats["node_rows"].sum()) * NODE_BYTES
               + int(stats["block_rows"].sum()) * BLOCK_BYTES + lane)
@@ -503,12 +523,12 @@ def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int, culled: int = 0)
 
 
 class CaptureWalks:
-    """Records the arguments of every K3/K4 wrapper call made by the
-    renderer while active (tensors cloned), to replay the main path's own
-    inputs."""
+    """Records the arguments of every call of the ``names`` wrappers
+    (default K3/K4's) made by the renderer while active (tensors cloned),
+    to replay the main path's own inputs."""
 
-    def __init__(self, ops_bvh):
-        self.ops, self.calls = ops_bvh, {"closest_hit": [], "any_hit": []}
+    def __init__(self, ops_bvh, names=("closest_hit", "any_hit")):
+        self.ops, self.calls = ops_bvh, {k: [] for k in names}
 
     def __enter__(self):
         self.orig = {k: getattr(self.ops, k) for k in self.calls}
@@ -584,7 +604,7 @@ def check_walk(ops_bvh, plain_walk, name, args, tag):
     geo = ops_bvh.last_geometry[name]
     kernel_ms = device_ms(kernel, [args])
     kernel_call_ms = call_ms(kernel, [args])
-    plain_ms = _event_ms(run_plain, 2)
+    plain_ms = _event_ms(run_plain, 1)
     out_bytes = 8 if name == "bvh_closest" else 1
     _, visit_bytes = bvh_work(stats, lanes, per_lane, out_bytes)
     bound_ms, bound_by, culled, bound_all_ms = walk_bounds(plain_walk, args, stats, out_bytes)
@@ -676,7 +696,7 @@ def bvh_kernel_phase(dev):
             what = "shadow rays" if kernel == "bvh_any" and "any" in ins else "rays"
             walk = plain.intersect_mesh if kernel == "bvh_closest" else plain.intersect_mesh_any
             recs[kernel].append(check_walk(ops_bvh, walk, kernel, args, f"{tag} {what}"))
-    return recs
+    return recs, inputs
 
 
 # ---------------------------------------------------------- big meshes
@@ -767,19 +787,20 @@ def bigmesh_path(ops_bvh, dev):
             pass_ms=secs * 1e3 / (spp // spp_pass), rays_per_s=rays / secs, image_mean=mean,
             launches={k: v - before[k] for k, v in ops_bvh.launch_counts.items()},
         )
-    launches = dict(ops_bvh.launch_counts)
+    launches = {k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}
     emit(dict(phase="bigmesh_path", size=f"{BIG_W}x{BIG_H}",
               ray_count="W*H*depth*(1+shadow rays) per spp", scenes=per_scene,
               launches=launches))
     if min(launches.values()) < 1:
         fail(f"big-mesh path: a BVH kernel was never launched: {launches}")
     walks_in_pass(dev, scenes, flats, per_scene)
-    return launches
+    return launches, per_scene
 
 
-def walks_in_pass(dev, scenes, flats, per_scene):
+def walks_in_pass(dev, scenes, flats, per_scene, entries=BIG_SCENES, phase="bigmesh_walks_in_pass"):
     """Device time of the bvh_* kernels inside one pass of each big-mesh
-    scene, from torch.profiler's records of the card's kernels."""
+    scene (``entries``: (name, depth, spp)), from torch.profiler's records
+    of the card's kernels, and the pass's device idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -787,7 +808,7 @@ def walks_in_pass(dev, scenes, flats, per_scene):
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn
 
     rec = {}
-    for name, _, spp in BIG_SCENES:
+    for name, _, spp in entries:
         flat, cam = flats[name]
         step = make_accumulate_fn(scenes[name].options, spp_per_pass(spp))
         accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
@@ -808,8 +829,11 @@ def walks_in_pass(dev, scenes, flats, per_scene):
             walk_launches=sum(e.count for e in walks),
             walk_share_of_pass=walk_ms / per_scene[name]["pass_ms"] if busy > 0 else None,
             walk_share_of_busy=walk_ms / busy if busy > 0 else None,
+            idle_share_profiled=1.0 - busy / wall_ms if busy > 0 else "not measured",
+            walk_kernels={e.key[:40]: [e.count, e.self_device_time_total / 1e3] for e in walks},
         )
-    emit(dict(phase="bigmesh_walks_in_pass", size=f"{BIG_W}x{BIG_H}", scenes=rec))
+    emit(dict(phase=phase, size=f"{BIG_W}x{BIG_H}", scenes=rec))
+    return rec
 
 
 # ------------------------------------------------------------- gradients
@@ -909,7 +933,7 @@ def gradient_phase(ops_bvh, dev):
                 render_loss(flat, cam, GeneratorUniforms(i, dev), target, **opts)
 
         times = {"fwd_bwd": [], "fwd": []}
-        for i in range(3):
+        for i in range(2):
             for key, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd), ("fwd_bwd", fwd_bwd), ("fwd", fwd)):
                 times[key].append(_event_ms(lambda: fn(i), 1))
         med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
@@ -966,6 +990,259 @@ def trainer_phase(dev):
 
 
 
+# ------------------------------------- the rest of the integrator (K7)
+
+
+def check_steps(ops_bvh, plain, args, tag):
+    """K7 against its plain version (the plain walk's count with
+    tmax = +inf) on the same card inputs: equal on every lane. Timed
+    beside K3 on the same rays; the bound counts the rows the plain walk
+    reads, each once, the ray in (no tmax) and one f32 out."""
+    pool, noff, toff, o, d, slots = args
+    lanes = o.shape[0]
+    inf = torch.full((lanes,), float("inf"), device=o.device)
+    before = ops_bvh.launch_counts["bvh_steps"]
+    out = ops_bvh.traversal_steps_cuda(*args)
+    torch.cuda.synchronize()
+    if ops_bvh.launch_counts["bvh_steps"] != before + 1:
+        fail(f"bvh_steps {tag}: the wrapper did not count its launch")
+    stats = {}
+    ref = plain.traversal_cost(pool, noff, toff, o, d, inf, stack_slots=slots, stats=stats)
+    mismatched = int((out != ref).sum())
+    geo = ops_bvh.last_geometry["bvh_steps"]
+    k3_args = (pool, noff, toff, o, d, inf, slots)
+    kernel_ms = device_ms(ops_bvh.traversal_steps_cuda, [args])
+    k3_ms = device_ms(ops_bvh.closest_hit_cuda, [k3_args])
+    kernel_call_ms = call_ms(ops_bvh.traversal_steps_cuda, [args])
+    plain_ms = _event_ms(lambda: plain.traversal_cost(pool, noff, toff, o, d, inf,
+                                                      stack_slots=slots), 1)
+    per_lane = torch.is_tensor(noff)
+    work, visit_bytes = bvh_work(stats, lanes, per_lane, 4, ray_bytes=24)
+    bound_ms, bound_by = bound(work)
+    rec = dict(
+        kernel="bvh_steps", shape=tag, lanes=lanes, per_lane_offsets=per_lane,
+        mismatched=mismatched, max_abs_err=float((out - ref).abs().max()),
+        kernel_ms=kernel_ms, k3_ms_same_rays=k3_ms, k7_over_k3=kernel_ms / k3_ms,
+        kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / kernel_ms, rays_per_block=geo["rays_per_block"],
+        smem_bytes=geo["smem_bytes"], grid=geo["grid"],
+        steps_per_lane=float(ref.mean()), max_steps=float(ref.max()),
+        lanes_over_16_steps=int((ref > 16).sum()),
+        visits_per_lane=stats["visits"] / lanes, blocks_per_lane=stats["blocks"] / lanes,
+        rows_read=[int(stats["node_rows"].sum()), int(stats["block_rows"].sum())],
+        visit_traffic_ms=visit_bytes / HBM_BYTES_PER_S * 1e3, launches=1, library_ms=None,
+    )
+    emit(rec)
+    if mismatched or stats["visits"] + stats["blocks"] != int(ref.sum()):
+        fail(f"bvh_steps {tag}: kernel differs from the plain count ({mismatched} lanes)")
+    return rec
+
+
+def probe_scene(detail: int = 256, w: int = BIG_W, h: int = BIG_H, depth: int = 4):
+    from tinsel_tpu_torch.scene.presets import envmesh_scene
+
+    return envmesh_scene(w, h, depth, detail=detail, probe=True)
+
+
+def steps_kernel_phase(dev, walk_inputs):
+    """K7 on envmesh's 512x512 camera rays (captured from a complexity
+    pass: local rays, per-lane offsets), envmesh's first diffuse bounce and
+    the 524k sphere's rays; K4 on envmesh's probe shadow rays (captured
+    from a pass of the probe scene). Returns (K7 records, K4 record)."""
+    from tinsel_tpu_torch.accel import traverse as plain
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+
+    sc = probe_scene()
+    flat = sc.flatten(dev)
+    cam = CameraParams.from_host(sc.camera, dev)
+    with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
+        make_render_pass(sc.options)(flat, cam, GeneratorUniforms(9, dev))
+    probe_shadow = cap.calls["any_hit"][0]  # bounce 0's probe shadow rays
+    cx = dataclasses.replace(sc.options, mode="complexity")
+    with torch.no_grad(), CaptureWalks(ops_bvh, ("traversal_steps",)) as cap:
+        make_render_pass(cx)(flat, cam, GeneratorUniforms(9, dev))
+    camera = cap.calls["traversal_steps"][0]
+
+    def drop_tmax(args):
+        pool, noff, toff, o, d, _, slots = args
+        return (pool, noff, toff, o, d, slots)
+
+    recs = [
+        check_steps(ops_bvh, plain, camera, "envmesh camera rays"),
+        check_steps(ops_bvh, plain, drop_tmax(walk_inputs["envmesh"]["closest"]),
+                    "envmesh bounce 1"),
+        check_steps(ops_bvh, plain, drop_tmax(walk_inputs["sphere524k"]["closest"]),
+                    "sphere524k rays"),
+    ]
+    k4 = check_walk(ops_bvh, plain.intersect_mesh_any, "bvh_any", probe_shadow,
+                    "envmesh probe shadow rays")
+    tmax = probe_shadow[5]
+    if not bool(((tmax == float("inf")) | (tmax == 0)).all()) or not bool(torch.isinf(tmax).any()):
+        fail("envmesh probe shadow rays: expected tmax = +inf (0 on culled lanes)")
+    return recs, k4
+
+
+def compare_renders(a, b, what):
+    """Card against CPU at equal draws, the RENDER_* limits."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    if a.shape != b.shape or not np.isfinite(a).all():
+        fail(f"equal-draw {what} on the card: bad output")
+    close = np.isclose(a, b, atol=RENDER_ATOL, rtol=RENDER_RTOL).all(axis=-1)
+    rel = abs(a[..., :3].mean() - b[..., :3].mean()) / max(abs(b[..., :3].mean()), 1e-12)
+    rec = dict(phase="gpu_vs_cpu_equal_draws", scene=what, pixels_within_tol=float(close.mean()),
+               mean_rel_diff=float(rel), max_abs_diff=float(np.abs(a - b).max()))
+    emit(rec)
+    if close.mean() < RENDER_SHARE or not rel < RENDER_MEAN_REL:
+        fail(f"card and CPU disagree at equal draws: {rec}")
+
+
+def integrator_equal_draw_phase(dev):
+    """The slice's paths on the card and on the CPU at equal draws
+    (NumpyUniforms), 64x64: the probe-lit envmesh (detail 32, 2,048
+    triangles, depth 4), Cornell with power light sampling and Russian
+    roulette from bounce 2, the stratified and blue-noise samplers at 4
+    spp, the normals and complexity views (complexity: equal costs on the
+    same rays), and a warm-up and two adaptive rounds."""
+    from tinsel_tpu_torch.core.sampling import NumpyUniforms
+    from tinsel_tpu_torch.render.adaptive import adaptive_round
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.integrator import traversal_costs
+    from tinsel_tpu_torch.render.renderer import render
+    from tinsel_tpu_torch.scene.presets import cornell_scene
+
+    cpu = torch.device("cpu")
+
+    def both(sc, what, spp=1):
+        a, b = (render(sc, spp=spp, device=d, source=NumpyUniforms(7, d)) for d in (dev, cpu))
+        compare_renders(a, b, what)
+
+    both(probe_scene(32, 64, 64, 4), "envmesh probe detail 32 64x64 d4 1spp")
+    c = cornell_scene(64, 64, MAIN_DEPTH)
+    c.options = dataclasses.replace(c.options, light_sampling="power", rr_depth=2)
+    both(c, "cornell 64x64 d4 power rr_depth=2 1spp")
+    for sampler in ("stratified", "bluenoise"):
+        c = cornell_scene(64, 64, MAIN_DEPTH)
+        c.options = dataclasses.replace(c.options, sampler=sampler)
+        both(c, f"cornell 64x64 d4 {sampler} 4spp", spp=4)
+    e = probe_scene(32, 64, 64, 1)
+    e.options = dataclasses.replace(e.options, mode="normals")
+    both(e, "envmesh detail 32 64x64 normals 1spp")
+    e.options = dataclasses.replace(e.options, mode="complexity")
+    both(e, "envmesh detail 32 64x64 complexity 1spp")
+    # the costs themselves on the same rays: equal
+    flats = {d: e.flatten(d) for d in (dev, cpu)}
+    rng = np.random.default_rng(3)
+    dirs = rng.normal(size=(4096, 3)).astype(np.float32) * [0.3, 0.3, 1.0] + [0, -0.1, -1.0]
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    costs = [traversal_costs(flats[d], torch.tensor([[0.0, 1.0, 3.2]], device=d).repeat(4096, 1),
+                             torch.from_numpy(dirs.astype(np.float32)).to(d),
+                             torch.zeros(4096, device=d)).cpu() for d in (dev, cpu)]
+    n_diff = int((costs[0] != costs[1]).sum())
+    emit(dict(phase="complexity_costs_gpu_vs_cpu", rays=4096, differing=n_diff,
+              mean_cost=float(costs[1].mean()), max_cost=float(costs[1].max())))
+    if n_diff:
+        fail(f"complexity costs differ between the card and the CPU on {n_diff} rays")
+    # adaptive rounds: a uniform warm-up over the 16 tiles, two rounds of 4
+    c = cornell_scene(64, 64, MAIN_DEPTH)
+    out = []
+    for d in (dev, cpu):
+        flat, cam = c.flatten(d), CameraParams.from_host(c.camera, d)
+        acc, m2 = torch.zeros((64, 64, 4), device=d), torch.zeros((64, 64, 3), device=d)
+        for r, (k, uni) in enumerate(((16, True), (4, False), (4, False))):
+            acc, m2 = adaptive_round(acc, m2, flat, cam, NumpyUniforms(7 + r, d), k_tiles=k,
+                                     spp=2, width=64, height=64, max_depth=MAIN_DEPTH,
+                                     uniform=uni)
+        out.append(acc)
+    if not torch.equal(out[0][..., 3].cpu(), out[1][..., 3]):
+        fail("adaptive rounds chose other tiles on the card than on the CPU")
+    compare_renders(out[0], out[1], "cornell 64x64 d4 adaptive warm-up + 2 rounds")
+
+
+def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
+    """The full-width path: envmesh_scene(512, 512, 4, probe=True) at 16
+    spp (flattened once as set-up, then accumulated pass by pass as
+    ``render`` does) -> resolve -> nlm_denoise, K3/K4/K1 counts reset just
+    before and read just after; the same scene's complexity view through
+    ``render`` (K7 reset just before); ``adaptive_render`` at a 16-spp
+    budget; one profiled pass. Returns the launches."""
+    from tinsel_tpu_torch.core.color import resolve
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.render.adaptive import adaptive_render
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_accumulate_fn, render
+
+    sc = probe_scene()
+    t0 = time.perf_counter()
+    flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+    setup_s = time.perf_counter() - t0
+    spp, spp_pass = 16, spp_per_pass(16)
+    step = make_accumulate_fn(sc.options, spp_pass)
+    torch.cuda.synchronize()
+    ops_bvh.reset_launch_counts()
+    ops_nlm.reset_launch_counts()
+    t1 = time.perf_counter()
+    accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
+    source = GeneratorUniforms(0, dev)
+    for c in range(spp // spp_pass):
+        accum = step(accum, flat, cam, source, c)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    img = resolve(accum)
+    den = ops_nlm.nlm_denoise(img)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t1
+    launches = {"bvh_closest": ops_bvh.launch_counts["bvh_closest"],
+                "bvh_any": ops_bvh.launch_counts["bvh_any"],
+                "nlm_filter": ops_nlm.launch_counts["nlm_filter"]}
+    mean = float(img.mean())
+    if not torch.isfinite(accum).all() or not torch.isfinite(den).all() or not 0.01 < mean < 0.99:
+        fail(f"probe path: the image is not finite or is black (mean {mean})")
+    if min(launches.values()) < 1:
+        fail(f"probe path: a kernel was never launched: {launches}")
+    rays = BIG_W * BIG_H * 4 * 2 * spp  # camera/bounce ray + probe shadow ray per bounce
+    pass_ms = secs * 1e3 / (spp // spp_pass)
+    emit(dict(phase="probe_path", scene=f"envmesh probe {BIG_W}x{BIG_H} d4", spp=spp,
+              host_flatten_s=setup_s, render_s=secs, ms_per_spp=secs * 1e3 / spp,
+              pass_ms=pass_ms, rays_per_s=rays / secs,
+              ray_count="W*H*depth*(1+probe shadow ray) per spp",
+              ms_per_spp_over_envmesh_no_probe=secs * 1e3 / spp / per_scene_envmesh["ms_per_spp"],
+              total_s_with_denoise=t_all, image_mean=mean, denoised_mean=float(den.mean()),
+              launches=launches))
+
+    cx = probe_scene()
+    cx.options = dataclasses.replace(cx.options, mode="complexity")
+    ops_bvh.reset_launch_counts()
+    t2 = time.perf_counter()
+    heat = render(cx, spp=1, device=dev)
+    torch.cuda.synchronize()
+    cx_s = time.perf_counter() - t2
+    launches["bvh_steps"] = ops_bvh.launch_counts["bvh_steps"]
+    if launches["bvh_steps"] < 1 or not torch.isfinite(heat).all():
+        fail(f"complexity view: K7 was not launched or the image is not finite: {launches}")
+    emit(dict(phase="complexity_path", scene=f"envmesh probe {BIG_W}x{BIG_H}", spp=1,
+              seconds_with_flatten=cx_s, launches=dict(ops_bvh.launch_counts),
+              heat_mean=float(heat[..., :3].mean())))
+
+    t3 = time.perf_counter()
+    acc = adaptive_render(probe_scene(), 16, seed=0, device=dev)
+    torch.cuda.synchronize()
+    ad_s = time.perf_counter() - t3
+    counts = acc[..., 3]
+    if not torch.isfinite(acc).all() or float(counts.min()) < 4 or float(counts.mean()) > 16:
+        fail("adaptive_render: non-finite buffer or a budget overrun")
+    emit(dict(phase="adaptive_render", scene=f"envmesh probe {BIG_W}x{BIG_H} d4",
+              budget_spp=16, seconds_with_flatten=ad_s, mean_spp=float(counts.mean()),
+              max_spp=float(counts.max()), image_mean=float(resolve(acc).mean())))
+
+    walks_in_pass(dev, {"envmesh_probe": sc}, {"envmesh_probe": (flat, cam)},
+                  {"envmesh_probe": {"pass_ms": pass_ms}}, entries=(("envmesh_probe", 4, 16),),
+                  phase="probe_walks_in_pass")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
@@ -1004,12 +1281,21 @@ def main():
 
     from tinsel_tpu_torch.ops import bvh as ops_bvh
 
-    walks = bvh_kernel_phase(dev)
+    walks, walk_inputs = bvh_kernel_phase(dev)
     bigmesh_equal_draw_phase(dev)
-    launches.update(bigmesh_path(ops_bvh, dev))
+    big_launches, per_scene = bigmesh_path(ops_bvh, dev)
     gradient_equal_draw_phase(dev)
     gradient_phase(ops_bvh, dev)
     trainer_phase(dev)
+
+    steps, k4_probe = steps_kernel_phase(dev, walk_inputs)
+    walks["bvh_any"].append(k4_probe)
+    integrator_equal_draw_phase(dev)
+    probe_launches = probe_path(ops_nlm, ops_bvh, dev, per_scene["envmesh"])
+    # K3/K4 on the big-mesh and probe paths, K7 on the complexity view
+    for k in ("bvh_closest", "bvh_any"):
+        launches[k] = big_launches[k] + probe_launches[k]
+    launches["bvh_steps"] = probe_launches["bvh_steps"]
 
     table = []
     for rec, key, replaces in (
@@ -1027,12 +1313,12 @@ def main():
             bound_share=rec["bound_share"], library_ms=None,
         ))
     # K3 at the main path's incoherent bounce rays (envmesh's first diffuse
-    # bounce), K4 at its shadow rays (many_mesh's NEE); the error is the
+    # bounce), K4 at its shadow rays (envmesh's probe NEE); the error is the
     # worst over every input
     for key, tag, replaces in (
         ("bvh_closest", "envmesh rays",
          "tinsel_tpu/accel/traverse.py:761 intersect_mesh (_step :390)"),
-        ("bvh_any", "many_mesh shadow rays",
+        ("bvh_any", "envmesh probe shadow rays",
          "tinsel_tpu/accel/traverse.py:903 intersect_mesh_any (_traverse_tile_any :811)"),
     ):
         rec = next(r for r in walks[key] if r["shape"] == tag)
@@ -1044,6 +1330,15 @@ def main():
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             bound_share=rec["bound_share"], library_ms=None,
         ))
+    # K7 at the complexity view's own input: envmesh's camera rays
+    rec = steps[0]
+    table.append(dict(
+        name="bvh_steps", route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
+        replaces="tinsel_tpu/accel/traverse.py:963 traversal_cost (_run_tiled with_steps :635)",
+        launches=launches["bvh_steps"], max_abs_err=max(r["max_abs_err"] for r in steps),
+        ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
+    ))
     print(smi, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -130,5 +130,15 @@ def test_flatten_refuses_a_stack_deeper_than_128(monkeypatch):
 
 
 def test_envmesh_probe_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpresets.envmesh_scene(8, 8, 1, detail=4, probe=True)
+    """envmesh_scene(probe=True) is ported (slice 4): the JAX package's
+    scene, its test probe bit for bit. Loading a probe from a file needs
+    the HDR readers, which are slice 5, and says so."""
+    from tinsel_tpu_torch.scene.probe_io import load_probe
+
+    j = jpresets.envmesh_scene(8, 8, 1, detail=4, probe=True)
+    t = tpresets.envmesh_scene(8, 8, 1, detail=4, probe=True)
+    for k in ("data", "pdf_x", "cdf_x", "pdf_y", "cdf_y"):
+        np.testing.assert_array_equal(getattr(t.sky.probe, k), getattr(j.sky.probe, k))
+    np.testing.assert_array_equal(t.primitives[0].mesh.positions, j.primitives[0].mesh.positions)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        load_probe("probe.pfm")

@@ -14,7 +14,9 @@ and t and the winning triangle are equal bit for bit. The cases aim at
 what a half-warp per ray can get wrong: ties in t within a block and
 across leaf children, shared edges and vertices, part-filled blocks,
 offsets that change within a warp, stack overflow, and culled lanes
-(tmax 0, -0.0, NaN) beside +inf ones.
+(tmax 0, -0.0, NaN) beside +inf ones. K7 takes no tmax (the complexity
+view walks unbounded rays): it is held against the plain count with
+tmax = +inf, where a ray that misses every child of the root counts 1.
 """
 
 import dataclasses
@@ -96,7 +98,7 @@ def _assert_equal_plain(pool, noff, toff, o, d, tmax, slots):
     t, tri = ops.closest_hit(pool, noff, toff, o, d, tmax, slots)
     occ = ops.any_hit(pool, noff, toff, o, d, tmax, slots)
     torch.cuda.synchronize()
-    assert ops.launch_counts == {"bvh_closest": 1, "bvh_any": 1}
+    assert ops.launch_counts == {"bvh_closest": 1, "bvh_any": 1, "bvh_steps": 0}
     t_ref, tri_ref = plain.intersect_mesh(pool, noff, toff, o, d, tmax, stack_slots=slots)
     occ_ref = plain.intersect_mesh_any(pool, noff, toff, o, d, tmax, stack_slots=slots)
     assert torch.equal(t, t_ref)
@@ -136,11 +138,12 @@ def test_kernels_equal_plain_scalar_offsets(cuda, mesh, lanes):
     _assert_equal_plain(pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
 
 
-def _sequential(pool, node_offset, tri_offset, o, d, tmax, slots, any_hit):
+def _sequential(pool, node_offset, tri_offset, o, d, tmax, slots, any_hit, steps=False):
     """The walk one ray at a time, in csrc/bvh.cu's order, with torch ops
     on the CPU: a push past ``slots`` entries is dropped and a pop past
     them ends the walk (the plain lockstep walk does not take a stack
-    smaller than its walks need)."""
+    smaller than its walks need). ``steps``: return the closest-hit walk's
+    step counts instead (one per node visited, one per block tested)."""
     pool = dataclasses.replace(pool, node_rows=pool.node_rows.cpu(),
                                block_rows=pool.block_rows.cpu())
     lo, hi, words = plain._decode_nodes(pool.node_rows)
@@ -151,10 +154,12 @@ def _sequential(pool, node_offset, tri_offset, o, d, tmax, slots, any_hit):
     bbase = (plain._lanes(tri_offset, n, "cpu") // 16).tolist()
     t_out = torch.full((n,), float("inf"))
     tri_out = torch.full((n,), -1, dtype=torch.int32)
+    steps_out = torch.zeros((n,))
     for i in range(n):
         best_t, best_tri = float(tmax[i]), -1
         stack, sp, cur, lc, ic = [0] * slots, 0, 0, 0, 0
         while cur >= 0:
+            steps_out[i] += 1
             node = noff[i] + cur
             t0 = (lo[node] - o[i][:, None]) * rd[i][:, None]  # (3, 16)
             t1 = (hi[node] - o[i][:, None]) * rd[i][:, None]
@@ -167,6 +172,7 @@ def _sequential(pool, node_offset, tri_offset, o, d, tmax, slots, any_hit):
             for c in range(lc, 16):  # leaf children, each under the current best t
                 if w[c] >= 0 or not tn[c] < best_t:
                     continue
+                steps_out[i] += 1
                 b = pool.block_rows[bbase[i] + ~w[c]].reshape(12, 16)
                 hit, t = plain._tri_hit(b[0:3], b[3:6], b[6:9], o[i], d[i])
                 t = torch.where(hit & (t < best_t), t, plain.INF)
@@ -191,6 +197,8 @@ def _sequential(pool, node_offset, tri_offset, o, d, tmax, slots, any_hit):
                 cur = -1
         if best_tri >= 0:
             t_out[i], tri_out[i] = best_t, best_tri
+    if steps:
+        return steps_out
     return (tri_out >= 0) if any_hit else (t_out, tri_out)
 
 
@@ -214,6 +222,100 @@ def test_stack_overflow_as_the_sequential_walk(cuda, slots):
         want = plain.intersect_mesh(pool, h.node_offset, h.tri_offset, o, d, tmax,
                                     stack_slots=slots)
         assert torch.equal(t, want[0]) and torch.equal(tri, want[1])
+    # K7 on the same rays (unbounded)
+    inf = torch.full_like(tmax, float("inf"))
+    steps = ops.traversal_steps(pool, h.node_offset, h.tri_offset, o, d, slots)
+    want = _sequential(pool, h.node_offset, h.tri_offset, o, d, inf, slots, False, steps=True)
+    assert torch.equal(steps.cpu(), want)
+    if slots == h.stack_slots:
+        assert torch.equal(steps, plain.traversal_cost(pool, h.node_offset, h.tri_offset, o, d,
+                                                       inf, stack_slots=slots))
+
+
+def _assert_steps_equal_plain(pool, noff, toff, o, d, slots):
+    """K7, one launch, against the plain count with tmax = +inf: equal on
+    every lane."""
+    before = ops.launch_counts["bvh_steps"]
+    steps = ops.traversal_steps(pool, noff, toff, o, d, slots)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["bvh_steps"] == before + 1
+    inf = torch.full((o.shape[0],), float("inf"), device=o.device)
+    want = plain.traversal_cost(pool, noff, toff, o, d, inf, stack_slots=slots)
+    assert steps.dtype == torch.float32 and torch.equal(steps, want)
+    assert (steps >= 1).all()
+    return steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 7, 9, 127, 4099])
+def test_steps_kernel_equals_plain_per_lane_offsets(cuda, lanes):
+    """K7 with offsets that change from ray to ray within a warp, at lane
+    counts that leave a block part-filled."""
+    pool, handles = _pool(cuda)
+    o, d, _ = _rays(lanes, lanes)
+    o, d = (torch.from_numpy(a).to(cuda) for a in (o, d))
+    noff, toff, slots = _per_lane(handles, lanes, cuda)
+    steps = _assert_steps_equal_plain(pool, noff, toff, o, d, slots)
+    if lanes > 1000:
+        assert float(steps.max()) > 16 and float((steps == 1).float().mean()) > 0.05
+
+
+@pytest.mark.cuda
+def test_steps_kernel_on_the_soup_and_the_524k_sphere(cuda):
+    """The soup (a deep tree) at a full launch, then the 524,288-triangle
+    UV sphere: 65,536 rays aimed at its middle and rays that miss the
+    root's children, which count 1 (the root's step)."""
+    pool, handles = _pool(cuda)
+    h = handles[0]
+    o, d, _ = _rays(65536, 21)
+    o, d = (torch.from_numpy(a).to(cuda) for a in (o, d))
+    _assert_steps_equal_plain(pool, h.node_offset, h.tri_offset, o, d, h.stack_slots)
+
+    m = procedural.sphere(radius=1.0, n_theta=512, n_phi=512)
+    sc = model.Scene()
+    sc.add_primitive(model.Primitive(type=model.MESH, mesh=m))
+    flat = sc.flatten(device=cuda)
+    h = flat.prim_static[0].mesh
+    assert h.real_tris == 524288
+    rng = np.random.default_rng(5)
+    n = 65536
+    o = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n), np.full(n, -3.0)], -1)
+    d = np.tile([0.0, 0.0, 1.0], (n, 1)) + rng.normal(size=(n, 3)) * 0.02
+    o[: n // 8, 2] = 5.0  # behind the sphere, looking away: miss the root's children
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (o, d))
+    steps = _assert_steps_equal_plain(flat.pool, h.node_offset, h.tri_offset, o, d,
+                                      h.stack_slots)
+    assert (steps[: n // 8] == 1).all() and float(steps[n // 8:].min()) > 1
+
+
+@pytest.mark.cuda
+def test_complexity_view_on_the_card_matches_the_cpu(cuda):
+    """mode="complexity" on many_mesh (big meshes in one K7 launch with
+    per-lane offsets, tiny meshes at their constant, the floor at 1) and on
+    envmesh: equal costs on the same rays on the card and on the CPU, and
+    the rendered views equal on 99% of the pixels (the camera rays are
+    computed on each device and may differ in the last bit, which can move
+    a ray across a box's edge)."""
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.integrator import traversal_costs
+
+    for sc in (presets.many_mesh_scene(20, 48, 48, 1), presets.envmesh_scene(48, 48, 1, detail=48)):
+        sc.options.mode = "complexity"
+        ops.reset_launch_counts()
+        a = render(sc, spp=2, device=cuda, source=NumpyUniforms(5, cuda)).cpu()
+        assert ops.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 1}
+        b = render(sc, spp=2, device="cpu", source=NumpyUniforms(5, "cpu"))
+        close = torch.isclose(a, b, atol=1e-4, rtol=1e-3).all(dim=-1)
+        assert float(close.float().mean()) >= 0.99
+        flat, cam = sc.flatten(cuda), CameraParams.from_host(sc.camera, cuda)
+        rng = np.random.default_rng(1)
+        o = cam.position.expand(4096, 3).contiguous()
+        d = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32)).to(cuda)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        t = torch.zeros(4096, device=cuda)
+        cpu = sc.flatten("cpu")
+        assert torch.equal(traversal_costs(flat, o, d, t).cpu(),
+                           traversal_costs(cpu, o.cpu(), d.cpu(), t.cpu()))
 
 
 def _duplicates():
@@ -303,21 +405,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["instances", "envmesh", "many_mesh"])
+@pytest.mark.parametrize("name", ["instances", "envmesh", "many_mesh", "envmesh_probe"])
 def test_big_mesh_render_on_the_card_matches_the_cpu(cuda, name):
     """Equal draws on both devices: 99.5% of pixels within atol 1e-4 /
     rtol 1e-3 (the card's transcendental functions round differently in
     the last bit, and a grazing ray may then take another path). Only
-    many_mesh has a light, so only its shadow rays launch K4."""
+    many_mesh has a light and envmesh_probe a probe, so only their shadow
+    rays launch K4."""
     sc = {
         "instances": lambda: presets.instances_scene(48, 48, 3),
         "envmesh": lambda: presets.envmesh_scene(48, 48, 3, detail=32),
         "many_mesh": lambda: presets.many_mesh_scene(20, 48, 48, 2),
+        "envmesh_probe": lambda: presets.envmesh_scene(48, 48, 3, detail=32, probe=True),
     }[name]()
     ops.reset_launch_counts()
     a = render(sc, spp=1, device=cuda, source=NumpyUniforms(5, cuda)).cpu().numpy()
     assert ops.launch_counts["bvh_closest"] > 0
-    assert (ops.launch_counts["bvh_any"] > 0) == (name == "many_mesh")
+    assert (ops.launch_counts["bvh_any"] > 0) == (name in ("many_mesh", "envmesh_probe"))
     b = render(sc, spp=1, device="cpu", source=NumpyUniforms(5, "cpu")).numpy()
     assert np.isfinite(a).all()
     close = np.isclose(a, b, atol=1e-4, rtol=1e-3).all(axis=-1)

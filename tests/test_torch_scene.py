@@ -145,10 +145,20 @@ def test_camera_from_numpy_matches_from_host():
 
 @pytest.mark.parametrize("what", ["probe"])
 def test_flatten_refuses_later_slices(what):
-    """HDR probes are slice 4; big meshes and bump maps flatten since
-    slice 3 (test_flatten_matches_jax, kinds cornell+fan17 and
-    cornell+bump)."""
-    sc = tpresets.cornell_scene(8, 8, 1)
-    sc.sky.probe = object()
-    with pytest.raises(NotImplementedError, match="slice"):
-        sc.flatten(device="cpu")
+    """HDR probes flatten since slice 4 (as big meshes and bump maps since
+    slice 3): the probe tables and the light pmf equal the JAX package's
+    bit for bit. What is still refused is a later slice's: loading a probe
+    from a file (the HDR readers, slice 5)."""
+    from tinsel_tpu.scene.probe_io import create_test_probe as jprobe
+
+    from tinsel_tpu_torch.scene.probe_io import create_test_probe, load_probe
+
+    js, ts = jpresets.cornell_scene(8, 8, 1), tpresets.cornell_scene(8, 8, 1)
+    js.sky.probe, ts.sky.probe = jprobe(16, 8), create_test_probe(16, 8)
+    jf, tf = js.flatten(), ts.flatten(device="cpu")
+    for f in dataclasses.fields(jf.probe):
+        np.testing.assert_array_equal(getattr(tf.probe, f.name).numpy(),
+                                      np.asarray(getattr(jf.probe, f.name)))
+    np.testing.assert_array_equal(tf.light_pmf.numpy(), np.asarray(jf.light_pmf))
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        load_probe(f"{what}.hdr")

@@ -23,6 +23,12 @@ class JaxUniforms:
             k = jax.random.fold_in(k, p)
         return torch.from_numpy(np.array(jax.random.uniform(k, tuple(shape))))
 
+    def randint(self, path, shape, low, high):
+        k = self.key
+        for p in path:
+            k = jax.random.fold_in(k, p)
+        return torch.from_numpy(np.array(jax.random.randint(k, tuple(shape), low, high)))
+
 
 def scene_to_numpy(flat):
     """(arrays, static) of a tinsel_tpu SceneFlat, the input of
@@ -40,6 +46,10 @@ def scene_to_numpy(flat):
     for name in ("sky_horizon", "sky_zenith", "prim_type", "prim_light_samples",
                  "prim_local_area", "prim_bump"):
         arrays[name] = np.asarray(getattr(flat, name))
+    arrays["light_pmf"] = np.asarray(flat.light_pmf)
+    if flat.probe is not None:
+        for f in dataclasses.fields(flat.probe):
+            arrays[f"probe.{f.name}"] = np.asarray(getattr(flat.probe, f.name))
     prim_static = []
     for ps in flat.prim_static:
         mesh = None if ps.mesh is None else dataclasses.asdict(ps.mesh)
@@ -61,3 +71,22 @@ def materials_rows(flat, idx):
         f.name: np.asarray(getattr(flat.materials, f.name))[idx]
         for f in dataclasses.fields(flat.materials)
     }
+
+
+def jax_render_pass(flat, cam, key, **kw):
+    """tinsel_tpu's render_pass, jitted, as numpy."""
+    from tinsel_tpu.render.renderer import render_pass
+
+    return np.array(jax.jit(lambda s, c, k: render_pass(s, c, k, **kw))(flat, cam, key))
+
+
+def assert_pass_matches(a, b):
+    """A port render pass ``b`` against the JAX pass ``a`` at equal draws:
+    at least 99.5% of pixels within atol 1e-4 / rtol 1e-3, image means
+    within 1e-3 relative (a ray grazing an edge may take another path after
+    a last-bit difference of a transcendental function)."""
+    assert b.shape == a.shape and np.isfinite(b).all()
+    close = np.isclose(b, a, atol=1e-4, rtol=1e-3).all(axis=-1)
+    assert close.mean() >= 0.995, close.mean()
+    rel = abs(b[..., :3].mean() - a[..., :3].mean()) / a[..., :3].mean()
+    assert rel < 1e-3, rel

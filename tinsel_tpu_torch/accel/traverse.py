@@ -20,6 +20,14 @@ half-warp per lane; ``ops/bvh.py`` dispatches between them. The JAX package's
 TPU machinery (tiles, two-phase compaction, packets) is not ported: it
 changes which of two triangles at exactly equal t wins, never t. Meshes
 of at most ``BLOCK_SIZE`` triangles take the brute sweep instead.
+
+``traversal_cost`` counts the closest-hit walk's steps per lane (the
+plain version of kernel K7): one per loop iteration in which the lane is
+unfinished (``cur >= 0`` or a block pending), that is one per node
+arrival plus one per leaf block tested. That is the JAX package's count
+whenever its walk runs in one phase (at most its ``TILE`` = 4,096 rays a
+call); above that it caps the first phase at 16 steps and re-walks the
+unfinished rays from the root, which the port does not.
 """
 
 from __future__ import annotations
@@ -256,7 +264,7 @@ def _lanes(x, r, device):
 
 
 def _walk(pool: MeshPool, node_offset, tri_offset, origins, dirs, tmax,
-          stack_slots: int, any_hit: bool, stats: dict | None):
+          stack_slots: int, any_hit: bool, stats: dict | None, with_steps: bool = False):
     r = origins.shape[0]
     dev = origins.device
     lo, hi, words = _decode_nodes(pool.node_rows)
@@ -273,9 +281,12 @@ def _walk(pool: MeshPool, node_offset, tri_offset, origins, dirs, tmax,
     best_t = tmax.to(torch.float32).clone()
     best_tri = torch.full((r,), -1, **i32)
     occ = torch.zeros(r, dtype=torch.bool, device=dev)
+    steps = torch.zeros(r, dtype=torch.float32, device=dev)
 
     arrived = cur >= 0  # lanes that reached a node this step
     while bool(((cur >= 0) | (pend >= 0)).any()):
+        if with_steps:
+            steps = steps + ((cur >= 0) | (pend >= 0)).to(torch.float32)
         live = cur >= 0
         node = noff + torch.clamp(cur, min=0)
         if stats is not None:
@@ -299,6 +310,8 @@ def _walk(pool: MeshPool, node_offset, tri_offset, origins, dirs, tmax,
         arrived = adv & (cur >= 0)
     if any_hit:
         return occ
+    if with_steps:
+        return steps
     return torch.where(best_tri >= 0, best_t, INF), best_tri
 
 
@@ -327,3 +340,17 @@ def intersect_mesh_any(pool: MeshPool, node_offset, tri_offset, origins, dirs,
         _, tri = _intersect_mesh_brute(pool, int(tri_offset), num_tris, origins, dirs, tmax)
         return tri >= 0
     return _walk(pool, node_offset, tri_offset, origins, dirs, tmax, stack_slots, True, stats)
+
+
+def traversal_cost(pool: MeshPool, node_offset, tri_offset, origins, dirs, tmax,
+                   num_tris: int | None = None,
+                   stack_slots: int = DEFAULT_STACK_SLOTS, stats: dict | None = None):
+    """Per-lane step count of the closest-hit walk, (R,) f32 (plain version
+    of kernel K7): node arrivals plus leaf blocks tested. A mesh of at most
+    BLOCK_SIZE triangles (``num_tris``) costs ``num_tris``. A lane with
+    tmax <= 0 or NaN counts 1 (the root's step, where no child passes).
+    Arguments as ``intersect_mesh``."""
+    if num_tris is not None and num_tris <= BLOCK_SIZE:
+        return torch.full((origins.shape[0],), float(num_tris), device=origins.device)
+    return _walk(pool, node_offset, tri_offset, origins, dirs, tmax, stack_slots, False,
+                 stats, with_steps=True)

@@ -29,6 +29,28 @@ def tonemap_filmic(c):
     return srgb_to_linear(ret)
 
 
+def yxy_to_xyz(Y, x, y):
+    """CIE Yxy -> XYZ, broadcasting; returns (..., 3)."""
+    y = torch.clamp(y, min=1e-6)
+    X = x * (Y / y)
+    Z = (1.0 - x - y) * (Y / y)
+    return torch.stack(torch.broadcast_tensors(X, Y, Z), dim=-1)
+
+
+# sRGB D65 primaries (linear RGB), standard matrix
+_XYZ_TO_RGB = (
+    (3.2404542, -1.5371385, -0.4985314),
+    (-0.9692660, 1.8760108, 0.0415560),
+    (0.0556434, -0.2040259, 1.0572252),
+)
+
+
+def xyz_to_linear_rgb(xyz):
+    """CIE XYZ -> linear sRGB. xyz: (..., 3)."""
+    m = torch.tensor(_XYZ_TO_RGB, dtype=torch.float32, device=xyz.device)
+    return xyz @ m.T
+
+
 def hsv_to_rgb(h, s, v):
     """HSV -> RGB, broadcasting, h in [0, 1) (port of
     ``tinsel_tpu/core/color.py:62``, same operation order)."""

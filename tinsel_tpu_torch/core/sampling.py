@@ -7,24 +7,44 @@ Randomness. The JAX package derives every draw from a key by a chain of
 ``fold_in`` calls. The port names each draw by that chain instead: a
 ``UniformSource`` answers ``uniform(path, shape)``, where ``path`` is the
 tuple of ints the JAX package folds into the pass key before it calls
-``jax.random.uniform(key, shape)``. The draws of one pass are:
+``jax.random.uniform(key, shape)`` (and ``randint(path, shape, low,
+high)`` for ``jax.random.randint``). The JAX bits depend on the shape as
+well as the path, so each draw keeps the JAX shape. The draws of one pass
+(bounce i; d counts the probe as draw 0 when the scene has one, then the
+lights) are:
 
-=========================================  ============================
-draw                                        path
-=========================================  ============================
-raster jitter, ``(S, H, W, 2)``             ``(0,)``
-shutter time, ``(S, H, W)``                 ``(1,)``
-lens, ``(S, H, W, 2)``                      ``(5,)``
-NEE uniform k of light draw d, sample s     ``(2, i, 1, d, s, k)``, k<3
-BSDF uniform k at bounce i                  ``(2, i, 2, k)``, k<6
-=========================================  ============================
+==============================================  ============================
+draw                                             path
+==============================================  ============================
+raster jitter, ``(S, H, W, 2)``                  ``(0,)``
+  blue noise: pixel shift, ``(1, H, W, 2)``      ``(0,)``
+shutter time, ``(S, H, W)``                      ``(1,)``
+  blue noise: time shift, ``(1, H, W)``          ``(1,)``
+blue-noise points: first ``(2,)``, then point    ``(3, 0)``, ``(3, j)``
+  j's candidates ``(32, 2)``
+lens, ``(S, H, W, 2)``                           ``(5,)``
+probe NEE uniform k, ``(R,)``                    ``(2, i, 1, 0, k)``, k<2
+NEE uniform k of light draw d, sample s          ``(2, i, 1, d, s, k)``, k<3
+power mode: light pick, ``(R,)``                 ``(2, i, 1, d, 999)``
+power mode: light jj's uniform k, ``(R,)``       ``(2, i, 1, d, jj, k)``, k<3
+BSDF uniform k, ``(R,)``                         ``(2, i, 2, k)``, k<6
+Russian roulette, ``(R,)``                       ``(2, i, 3)``
+==============================================  ============================
 
-read from ``tinsel_tpu/render/renderer.py:55-56, :128-129, :150-152``,
-``render/integrator.py:116, :220, :233``, ``render/lights.py:68-70, :232``
-and ``bsdf/disney.py:180-181``; ``make_accumulate_fn`` folds the pass index
-in first. A source built on ``jax.random`` therefore reproduces the JAX
-package's draws exactly (the tests do this); the default source below
-draws from a ``torch.Generator`` and ignores the path.
+Adaptive sampling (``render/adaptive.py``) folds the round index r in
+first, then draws jitter ``(r, 0)`` of shape ``(spp, N, 2)``, times
+``(r, 1)`` of ``(spp * N,)``, lens ``(r, 4)`` of ``(spp * N, 2)``, paths
+under ``(r, 2, ...)`` and, in a uniform round, its first tile as
+``randint`` under ``(r, 9)``.
+
+Read from ``tinsel_tpu/render/renderer.py:55-92, :128-129, :150-152``,
+``render/integrator.py:116, :220, :233, :251``, ``render/lights.py:68-70,
+:120-126, :149-169, :232``, ``render/adaptive.py:89-103, :126``,
+``core/sampling.py:79-105`` and ``bsdf/disney.py:180-181``;
+``make_accumulate_fn`` folds the pass index in first. A source built on
+``jax.random`` therefore reproduces the JAX package's draws exactly (the
+tests do this); the default source below draws from a
+``torch.Generator`` and ignores the path.
 """
 
 from __future__ import annotations
@@ -40,6 +60,9 @@ from .math import TWO_PI
 class UniformSource(Protocol):
     def uniform(self, path: tuple, shape: Sequence[int]) -> torch.Tensor:
         """f32 uniforms in [0, 1) of ``shape`` for the draw named ``path``."""
+
+    def randint(self, path: tuple, shape: Sequence[int], low: int, high: int) -> torch.Tensor:
+        """Integers in [low, high) of ``shape`` for the draw named ``path``."""
 
 
 class GeneratorUniforms:
@@ -57,6 +80,10 @@ class GeneratorUniforms:
             dtype=torch.float32,
         )
 
+    def randint(self, path, shape, low, high):
+        return torch.randint(int(low), int(high), tuple(shape), generator=self.generator,
+                             device=self.device)
+
 
 class NumpyUniforms:
     """Deterministic per path: seeds numpy's PCG64 with ``(seed, *path)``.
@@ -72,6 +99,10 @@ class NumpyUniforms:
         a = rng.random(tuple(shape), dtype=np.float32)
         return torch.from_numpy(a).to(self.device)
 
+    def randint(self, path, shape, low, high):
+        rng = np.random.default_rng([self.seed, *[int(p) for p in path]])
+        return torch.from_numpy(np.asarray(rng.integers(low, high, tuple(shape)))).to(self.device)
+
 
 class Prefixed:
     """A source whose paths are ``prefix + path`` in ``base``: the port's
@@ -86,6 +117,9 @@ class Prefixed:
 
     def uniform(self, path, shape):
         return self.base.uniform(self.prefix + tuple(path), shape)
+
+    def randint(self, path, shape, low, high):
+        return self.base.randint(self.prefix + tuple(path), shape, low, high)
 
 
 def uniform_sample_sphere(u1, u2):
@@ -121,3 +155,53 @@ def uniform_sample_triangle(u1, u2):
     """Uniform barycentric (u, v) on a triangle."""
     r = torch.sqrt(u1)
     return 1.0 - r, u2 * r
+
+
+def _toroidal_dist2(p, q):
+    """Squared toroidal distance between point sets p (..., D) and q (..., D)."""
+    d = torch.abs(p - q)
+    d = torch.minimum(d, 1.0 - d)
+    return torch.sum(d * d, dim=-1)
+
+
+def _best_candidate(n: int, source, k: int, axis_weight2: float | None):
+    first = source.uniform((0,), (2,))
+    pts = torch.zeros((n, 2), dtype=torch.float32, device=first.device)
+    pts[0] = first
+    slots = torch.arange(n, device=first.device)
+    for i in range(1, n):
+        cand = source.uniform((i,), (k, 2))
+        d2 = _toroidal_dist2(cand[:, None, :], pts[None, :, :])  # (k, n)
+        if axis_weight2 is not None:
+            dx = _toroidal_dist2(cand[:, None, :1], pts[None, :, :1]) * axis_weight2
+            dy = _toroidal_dist2(cand[:, None, 1:], pts[None, :, 1:]) * axis_weight2
+            d2 = torch.minimum(d2, torch.minimum(dx, dy))
+        d2 = torch.where((slots < i)[None, :], d2, torch.inf)
+        # argmax takes the first of equal scores, as jnp.argmax
+        pts[i] = cand[torch.argmax(d2.min(dim=1).values)]
+    return pts
+
+
+def best_candidate_2d(n: int, source, candidates_per_point: int = 32):
+    """Best-candidate (Mitchell) blue-noise point set in [0, 1)^2, (n, 2):
+    point 0 reads ``source`` at (0,), point i >= 1 keeps, of the k
+    candidates drawn at (i,), the one farthest (toroidally) from the points
+    before it."""
+    return _best_candidate(n, source, candidates_per_point, None)
+
+
+def best_candidate_projective_2d(n: int, source, candidates_per_point: int = 32,
+                                 axis_weight: float | None = None):
+    """Projective blue noise: candidates are scored by the min of the 2D
+    toroidal distance and each axis projection's distance scaled by
+    ``axis_weight`` (default sqrt(n)), so the set is well spread in 2D and
+    in both 1D projections. Draws as ``best_candidate_2d``."""
+    w1 = axis_weight if axis_weight is not None else float(n) ** 0.5
+    return _best_candidate(n, source, candidates_per_point, w1 * w1)
+
+
+def toroidal_shift(points, source):
+    """Cranley-Patterson rotation: shift a point set by one uniform offset
+    (``source`` at path ()) mod 1."""
+    off = source.uniform((), (points.shape[-1],))
+    return torch.remainder(points + off, 1.0)

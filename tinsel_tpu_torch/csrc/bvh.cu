@@ -1,10 +1,11 @@
-// Wide-BVH walks for Hopper (sm_90a): kernels K3 (closest hit) and K4
-// (any hit with t < tmax).
+// Wide-BVH walks for Hopper (sm_90a): kernels K3 (closest hit), K4 (any
+// hit with t < tmax) and K7 (the closest-hit walk's step count).
 //
 // Replaces: tinsel_tpu/accel/traverse.py:761 intersect_mesh (its walk
-// _run_tiled :635 / _traverse_tile :491 / _step :390) and :903
-// intersect_mesh_any (_traverse_tile_any :811). In the JAX package these
-// are pure JAX lockstep loops over tiles of rays.
+// _run_tiled :635 / _traverse_tile :491 / _step :390), :903
+// intersect_mesh_any (_traverse_tile_any :811) and :963 traversal_cost
+// (_run_tiled with with_steps=True). In the JAX package these are pure
+// JAX lockstep loops over tiles of rays.
 //
 // Layout (accel/build.py, built on the host):
 //   node row (72 floats, 288 B): cols [0,16) x, [16,32) y, [32,48) z child
@@ -75,6 +76,13 @@
 //   * Rows are addressed by 32-bit float offsets from the tables' bases
 //     (ops/bvh.py refuses tables of 2^32 floats or more), which keeps the
 //     walk at 48 registers: ten 128-thread blocks per SM.
+//   * K7 walks as K3 does, from best t = +inf (it takes no tmax: the
+//     complexity view always walks unbounded rays), and counts one step
+//     per loop iteration (a node arrival: root, descent or pop) and one
+//     per leaf block tested. That is the plain walk's count of iterations
+//     in which the lane is unfinished (accel/traverse.py::traversal_cost):
+//     there a node with b leaf blocks takes b dwell steps and one advance,
+//     and a lane never ends with a block still pending.
 // The launch geometry (threads, rays per block, shared bytes, grid) comes
 // from ops/bvh.py::launch_geometry; the entry points check it.
 //
@@ -196,20 +204,22 @@ __device__ __forceinline__ Slot load_slot(const float* row, int lane) {
               __float_as_int(__ldg(row + 3 * K + lane))};
 }
 
-// The walk of one ray by its group, shared by both kernels, from the root
-// row's slots s. ANY: stop at the first block with a triangle hit at
-// t < tmax. Returns the closest hit's tri_local (best_t its t), or -1; for
-// ANY, >= 0 if a hit was found. Every branch is uniform across the group.
+// The walk of one ray by its group, shared by the three kernels, from the
+// root row's slots s. ANY: stop at the first block with a triangle hit at
+// t < tmax. STEPS: count node arrivals and block tests into steps.
+// Returns the closest hit's tri_local (best_t its t), or -1; for ANY,
+// >= 0 if a hit was found. Every branch is uniform across the group.
 // nbase / bbase: float offsets of the mesh's first node row and leaf block.
-template <bool ANY>
+template <bool ANY, bool STEPS>
 __device__ __forceinline__ int walk(const float* __restrict__ node_rows,
                                     const float* __restrict__ block_rows, unsigned nbase,
                                     unsigned bbase, const Ray& r, int slots, int* stack,
-                                    const Group& g, Slot s, float& best_t) {
+                                    const Group& g, Slot s, float& best_t, int& steps) {
   int best_tri = -1;
   int sp = 0, cur = 0, ic = 0;
   bool leaves = true;  // false after a pop: the node's leaves were tested
   while (true) {
+    if (STEPS) ++steps;
     const float* row = node_rows + (nbase + (unsigned)cur * ROW);
     float tn;
     const bool box = slab(s.x, s.y, s.z, r, tn);
@@ -226,6 +236,7 @@ __device__ __forceinline__ int walk(const float* __restrict__ node_rows,
       const int c = __ffs(m) - 1;
       m &= m - 1;
       const int blk = ~__float_as_int(__ldg(row + 3 * K + c));
+      if (STEPS) ++steps;
       float t;
       const bool hit =
           tri_hit(block_rows + (bbase + (unsigned)blk * BROW + g.lane), r, t) && t < best_t;
@@ -283,13 +294,14 @@ __device__ __forceinline__ int walk(const float* __restrict__ node_rows,
 // One group per ray; returns the ray's tri (or -1) and leaves its t in
 // best_t. A ray whose tmax is <= 0 or NaN loads nothing else. With a
 // scalar node offset the root row is loaded together with the ray.
-template <bool ANY>
+template <bool ANY, bool STEPS>
 __device__ __forceinline__ int trace(const float* __restrict__ node_rows,
                                      const float* __restrict__ block_rows,
                                      const float* __restrict__ origins,
                                      const float* __restrict__ dirs, const int* __restrict__ noffs,
                                      const int* __restrict__ toffs, int noff0, int toff0, int i,
-                                     int slots, int* stacks, const Group& g, float& best_t) {
+                                     int slots, int* stacks, const Group& g, float& best_t,
+                                     int& steps) {
   if (!(best_t > 0.0f)) return -1;
   const int noff = noffs ? __ldg(noffs + i) : noff0;
   const int toff = toffs ? __ldg(toffs + i) : toff0;
@@ -297,8 +309,8 @@ __device__ __forceinline__ int trace(const float* __restrict__ node_rows,
   const Slot root = load_slot(node_rows + nbase, g.lane);
   const Ray r = load_ray(origins, dirs, i);
   int* stack = stacks + (threadIdx.x / GROUP) * slots;
-  return walk<ANY>(node_rows, block_rows, nbase, (unsigned)(toff / BS) * BROW, r, slots, stack,
-                   g, root, best_t);
+  return walk<ANY, STEPS>(node_rows, block_rows, nbase, (unsigned)(toff / BS) * BROW, r, slots,
+                          stack, g, root, best_t, steps);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -312,8 +324,9 @@ bvh_closest_kernel(const float* __restrict__ node_rows, const float* __restrict_
   if (i >= n) return;
   const Group g(threadIdx.x);
   float best_t = __ldg(tmax + i);
-  const int tri = trace<false>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0,
-                               toff0, i, slots, stacks, g, best_t);
+  int steps = 0;
+  const int tri = trace<false, false>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0,
+                                      toff0, i, slots, stacks, g, best_t, steps);
   if (g.lane == 0) {
     t_out[i] = tri >= 0 ? best_t : __int_as_float(0x7f800000);
     tri_out[i] = tri;
@@ -331,9 +344,26 @@ bvh_any_kernel(const float* __restrict__ node_rows, const float* __restrict__ bl
   if (i >= n) return;
   const Group g(threadIdx.x);
   float best_t = __ldg(tmax + i);
-  const int tri = trace<true>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0, toff0,
-                              i, slots, stacks, g, best_t);
+  int steps = 0;
+  const int tri = trace<true, false>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0,
+                                     toff0, i, slots, stacks, g, best_t, steps);
   if (g.lane == 0) occ_out[i] = tri >= 0 ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(THREADS)
+bvh_steps_kernel(const float* __restrict__ node_rows, const float* __restrict__ block_rows,
+                 const float* __restrict__ origins, const float* __restrict__ dirs,
+                 const int* __restrict__ noffs, const int* __restrict__ toffs, int noff0,
+                 int toff0, int n, int slots, float* __restrict__ steps_out) {
+  extern __shared__ int stacks[];
+  const int i = blockIdx.x * RAYS + threadIdx.x / GROUP;
+  if (i >= n) return;
+  const Group g(threadIdx.x);
+  float best_t = __int_as_float(0x7f800000);
+  int steps = 0;
+  trace<false, true>(node_rows, block_rows, origins, dirs, noffs, toffs, noff0, toff0, i, slots,
+                     stacks, g, best_t, steps);
+  if (g.lane == 0) steps_out[i] = (float)steps;
 }
 
 // The geometry ops/bvh.py::launch_geometry computes, and nothing else.
@@ -365,5 +395,16 @@ extern "C" int tinsel_bvh_any(const float* node_rows, const float* block_rows,
   bvh_any_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, origins, dirs, tmax,
                                                   noffs, toffs, noff0, toff0, n, slots,
                                                   occ_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tinsel_bvh_steps(const float* node_rows, const float* block_rows,
+                                const float* origins, const float* dirs, const int* noffs,
+                                const int* toffs, int noff0, int toff0, int n, int slots,
+                                int threads, int rays_per_block, int smem, int grid,
+                                float* steps_out, cudaStream_t stream) {
+  if (!geometry_ok(n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  bvh_steps_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, origins, dirs, noffs,
+                                                    toffs, noff0, toff0, n, slots, steps_out);
   return (int)cudaGetLastError();
 }

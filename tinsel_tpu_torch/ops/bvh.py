@@ -4,9 +4,10 @@
 pure-JAX walk ``tinsel_tpu/accel/traverse.py:761 intersect_mesh``
 (``_run_tiled :635`` / ``_traverse_tile :491`` / ``_step :390``);
 ``any_hit`` (K4, same source) replaces ``:903 intersect_mesh_any``
-(``_traverse_tile_any :811``). Neither was Pallas in the JAX package:
-Mosaic has no per-lane gather from a large table, which a card does at
-every load.
+(``_traverse_tile_any :811``); ``traversal_steps`` (K7, same source, the
+same walk counting its steps) replaces ``:963 traversal_cost``. None was
+Pallas in the JAX package: Mosaic has no per-lane gather from a large
+table, which a card does at every load.
 
 Bound and design: the work is a data-dependent chain of dependent loads
 (a node row, then the leaf blocks it points to), so a walk is bounded by
@@ -37,7 +38,7 @@ from . import _build
 
 # Launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else.
-launch_counts = {"bvh_closest": 0, "bvh_any": 0}
+launch_counts = {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
 # lanes and launch geometry of each kernel's latest launch
 last_geometry: dict = {}
 GROUP = 16  # lanes per ray: one per child slot and per triangle slot
@@ -60,7 +61,7 @@ class Geometry:
 
 
 def launch_geometry(lanes: int, slots: int) -> Geometry:
-    """Launch geometry of K3/K4 for ``lanes`` rays with ``slots`` stack
+    """Launch geometry of K3/K4/K7 for ``lanes`` rays with ``slots`` stack
     entries each: a 16-lane group per ray, 128-thread blocks, a 4-byte
     shared-memory stack entry per slot and ray, one block per 8 rays."""
     if lanes < 0:
@@ -76,12 +77,13 @@ def _entry(kernel: str):
     if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(_build.load("bvh"), f"tinsel_{kernel}")
-        # node_rows, block_rows, origins, dirs, tmax, node offsets (or
-        # NULL), tri offsets (or NULL), the scalar offsets, lanes, stack
-        # slots, threads, rays per block, shared bytes, grid, out
-        # pointer(s), stream
+        # node_rows, block_rows, origins, dirs, tmax (not K7's), node
+        # offsets (or NULL), tri offsets (or NULL), the scalar offsets,
+        # lanes, stack slots, threads, rays per block, shared bytes, grid,
+        # out pointer(s), stream
+        rays = [p, p, p, p] if kernel == "bvh_steps" else [p, p, p, p, p]
         outs = [p, p] if kernel == "bvh_closest" else [p]
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, *outs, p]
+        fn.argtypes = [*rays, p, p, i, i, i, i, i, i, i, i, *outs, p]
         fn.restype = i
         _entries[kernel] = fn
     return fn
@@ -117,7 +119,8 @@ def _launch(kernel: str, pool, node_offset, tri_offset, origins, dirs, tmax,
     _check(pool.block_rows, "block_rows", torch.float32, (n_blocks, 12 * BLOCK_SIZE))
     _check(origins, "origins", torch.float32, (r, 3))
     _check(dirs, "dirs", torch.float32, (r, 3))
-    _check(tmax, "tmax", torch.float32, (r,))
+    if tmax is not None:
+        _check(tmax, "tmax", torch.float32, (r,))
     for t in (pool.node_rows, pool.block_rows, *outs):
         if t.device != dev:
             raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
@@ -129,9 +132,11 @@ def _launch(kernel: str, pool, node_offset, tri_offset, origins, dirs, tmax,
     toff_p, toff = _offset(tri_offset, r, dev, "tri_offset")
     if geo.grid == 0:
         return
+    rays = (origins.data_ptr(), dirs.data_ptr())
+    if tmax is not None:
+        rays += (tmax.data_ptr(),)
     args = (
-        pool.node_rows.data_ptr(), pool.block_rows.data_ptr(),
-        origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(), noff_p, toff_p,
+        pool.node_rows.data_ptr(), pool.block_rows.data_ptr(), *rays, noff_p, toff_p,
         noff, toff, r, int(stack_slots), geo.threads, geo.rays_per_block,
         geo.smem_bytes, geo.grid, *(o.data_ptr() for o in outs),
     )
@@ -169,6 +174,15 @@ def any_hit_cuda(pool, node_offset, tri_offset, origins, dirs, tmax,
     return occ
 
 
+def traversal_steps_cuda(pool, node_offset, tri_offset, origins, dirs, stack_slots: int):
+    """Kernel K7: (R,) f32 step count of each lane's closest-hit walk with
+    tmax = +inf (node arrivals plus leaf blocks tested)."""
+    steps = torch.empty((origins.shape[0],), dtype=torch.float32, device=origins.device)
+    _launch("bvh_steps", pool, node_offset, tri_offset, origins, dirs, None,
+            stack_slots, (steps,))
+    return steps
+
+
 def _on_cpu(origins) -> bool:
     if origins.device.type == "cpu":
         return True
@@ -196,3 +210,15 @@ def any_hit(pool, node_offset, tri_offset, origins, dirs, tmax,
         return _plain.intersect_mesh_any(pool, node_offset, tri_offset, origins, dirs,
                                          tmax, stack_slots=stack_slots)
     return any_hit_cuda(pool, node_offset, tri_offset, origins, dirs, tmax, stack_slots)
+
+
+def traversal_steps(pool, node_offset, tri_offset, origins, dirs,
+                    stack_slots: int = _plain.DEFAULT_STACK_SLOTS):
+    """Step count of each lane's unbounded closest-hit walk: kernel K7 on
+    CUDA tensors, ``accel/traverse.py::traversal_cost`` with tmax = +inf on
+    CPU tensors. Offsets are ints or (R,) int32 tensors."""
+    if _on_cpu(origins):
+        tmax = torch.full((origins.shape[0],), float("inf"))
+        return _plain.traversal_cost(pool, node_offset, tri_offset, origins, dirs, tmax,
+                                     stack_slots=stack_slots)
+    return traversal_steps_cuda(pool, node_offset, tri_offset, origins, dirs, stack_slots)

@@ -1,10 +1,15 @@
 """Next-event estimation with MIS (port of ``tinsel_tpu/render/lights.py``:
-``primitive_sample`` and ``sample_lights`` in its default "all" mode).
+``primitive_sample`` and ``sample_lights``).
 
-Shadow visibility is the JAX default segment-occlusion query
-(``NEE_CLOSEST_SHADOW=False``): ``trace_any`` up to ``dist - PORTAL_TOL``,
-with the sampled light's own emission and distance. Probe NEE and the
-"power" light-selection mode are ported in slice 4.
+A scene with an HDR probe first samples the probe (draw 0): one shadow ray
+with ``tmax = +inf`` and a balance-heuristic weight against the BSDF
+pdf. The area lights follow under draws 1, 2, ... (0, 1, ... without a
+probe): "all" traces one shadow ray per light sample; "power" picks one
+light per lane from ``SceneFlat.light_pmf`` and traces one shadow ray,
+with the pmf folded into the light pdf. Shadow visibility is the JAX
+default segment-occlusion query (``NEE_CLOSEST_SHADOW=False``):
+``trace_any`` up to ``dist - PORTAL_TOL``, with the sampled light's own
+emission and distance.
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ from ..core.math import (
 from ..core.sampling import Prefixed, uniform_sample_sphere, uniform_sample_triangle
 from ..core.search import lower_bound
 from ..scene.model import MESH, SPHERE, SceneFlat
+from .probe import probe_sample_uniforms
 from .trace import prim_transform, trace_any
 
 RAY_EPS = 1e-4  # kRayEpsilon
 K_BSDF_SAMPLES = 1.0
+K_PROBE_SAMPLES = 1.0
 PORTAL_TOL = 1e-2  # kTolerance
 
 
@@ -67,19 +74,98 @@ def primitive_sample(scene: SceneFlat, j: int, times, uniforms):
     return pos, normal, area * torch.ones(shape, dtype=torch.float32, device=times.device)
 
 
+def _probe_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
+    """The probe's sample (draw 0): uniforms (0,) and (1,) of ``source``."""
+    shape = tuple(times.shape)
+    r1 = source.uniform((0,), shape)
+    r2 = source.uniform((1,), shape)
+    wi, sky_color, sky_pdf = probe_sample_uniforms(scene.probe, r1, r2)
+    shadow_o = p + face_forward(n, wi) * RAY_EPS
+    # probe rays only need visibility: any hit, unbounded
+    visible = ~trace_any(scene, shadow_o, wi, times,
+                         torch.full(shape, math.inf, device=p.device))
+    bpdf = bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
+    f = bsdf_eval(mat, eta_i, eta_o, n, wo, wi)
+    ns = K_PROBE_SAMPLES + K_BSDF_SAMPLES
+    c_bsdf = K_BSDF_SAMPLES / ns
+    c_sky = K_PROBE_SAMPLES / ns
+    weight = c_sky * sky_pdf / torch.clamp(c_bsdf * bpdf + c_sky * sky_pdf, min=1e-12)
+    contrib = (
+        (weight * torch.abs(dot(wi, n)) / torch.clamp(sky_pdf, min=1e-12))[..., None]
+        * sky_color
+        * f
+    )
+    ok = visible & (bpdf > 0.0) & (sky_pdf > 0.0) & (weight > 0.0)
+    return torch.where(ok[..., None], contrib, torch.zeros_like(contrib)) / K_PROBE_SAMPLES
+
+
+def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
+    """One light per lane, picked from the power pmf by the uniform (999,)
+    of ``source``; light jj's candidate sample reads (jj, k). Every
+    candidate is evaluated, the shadow ray is traced once."""
+    shape = tuple(times.shape)
+    li = list(scene.light_indices)
+    pmf_l = torch.stack([scene.light_pmf[j] for j in li])  # (L,)
+    cdf = torch.cumsum(pmf_l, dim=0)
+    u = source.uniform((999,), shape)
+    sel = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, len(li) - 1)
+    pos = torch.zeros_like(p)
+    nrm = torch.zeros_like(p)
+    area = torch.zeros(shape, dtype=torch.float32, device=p.device)
+    pmf_sel = torch.zeros(shape, dtype=torch.float32, device=p.device)
+    emission = torch.zeros_like(p)
+    for jj, j in enumerate(li):
+        kj = Prefixed(source, jj)
+        pj, nj, aj = primitive_sample(scene, j, times, [kj.uniform((k,), shape) for k in range(3)])
+        m = sel == jj
+        pos = torch.where(m[..., None], pj, pos)
+        nrm = torch.where(m[..., None], nj, nrm)
+        area = torch.where(m, aj, area)
+        pmf_sel = torch.where(m, pmf_l[jj], pmf_sel)
+        emission = torch.where(m[..., None], scene.materials.emission[j], emission)
+
+    wi_un = pos - p
+    dist = torch.sqrt(torch.clamp(length_sq(wi_un), min=1e-20))
+    wi = wi_un / dist[..., None]
+    shadow_o = p + face_forward(n, wi) * RAY_EPS
+    accept = ~trace_any(scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0))
+    nl = torch.abs(dot(nrm, wi))
+    accept = accept & (nl >= 1e-6) & (pmf_sel > 0.0)
+    # the selection pmf folds into the NEE pdf; one sample per strategy, so
+    # the balance-heuristic coefficients (1/2 each) cancel
+    light_pdf = pmf_sel * (dist * dist) / torch.clamp(area * nl, min=1e-12)
+    bpdf = bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
+    f = bsdf_eval(mat, eta_i, eta_o, n, wo, wi)
+    accept = accept & (bpdf > 0.0)
+    weight = light_pdf / torch.clamp(bpdf + light_pdf, min=1e-12)
+    contrib = (
+        (weight * torch.abs(dot(wi, n)) / torch.clamp(light_pdf, min=1e-3))[..., None]
+        * f
+        * emission
+    )
+    return torch.where(accept[..., None], contrib, torch.zeros_like(contrib))
+
+
 def sample_lights(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source,
                   light_sampling: str = "all"):
-    """Direct lighting at surface points p with shading normals n: one
-    shadow ray per light sample. ``source`` is the UniformSource of this
-    bounce's NEE draws: light draw d, sample s reads paths (d, s, k).
-    Returns (R, 3) radiance (not multiplied by throughput)."""
-    if light_sampling != "all":
-        raise NotImplementedError(
-            f"light_sampling={light_sampling!r} is ported in slice 4"
-        )
+    """Direct lighting at surface points p with shading normals n.
+    ``source`` is the UniformSource of this bounce's NEE draws: the probe
+    reads draw 0, the lights the draws after it; in "all" mode light draw d,
+    sample s reads (d, s, k). Returns (R, 3) radiance (not multiplied by
+    throughput)."""
+    if light_sampling not in ("all", "power"):
+        raise ValueError(f"unknown light_sampling {light_sampling!r}")
     total = torch.zeros_like(p)
     shape = tuple(times.shape)
-    for draw, j in enumerate(scene.light_indices):
+    draw = 0
+    if scene.probe is not None:
+        total = total + _probe_nee(scene, mat, eta_i, eta_o, p, n, wo, times,
+                                   Prefixed(source, draw))
+        draw += 1
+    if light_sampling == "power" and scene.light_indices:
+        return total + _power_nee(scene, mat, eta_i, eta_o, p, n, wo, times,
+                                  Prefixed(source, draw))
+    for j in scene.light_indices:
         n_samples = scene.prim_static[j].light_samples
         lj = torch.zeros_like(p)
         for s in range(n_samples):
@@ -121,5 +207,6 @@ def sample_lights(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source,
                 * emission
             )
             lj = lj + torch.where(accept[..., None], contrib, torch.zeros_like(contrib))
+        draw += 1
         total = total + lj / max(n_samples, 1)
     return total

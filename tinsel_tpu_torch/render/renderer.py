@@ -3,7 +3,9 @@
 
 A pass renders ``samples_per_pass`` spp as one flat (S*H*W,) ray batch and
 returns its (H, W, 4) RGBA increment through the gather-stencil splat;
-``render`` bounds a pass at about 1M rays, as the JAX package does.
+``render`` bounds a pass at about 1M rays, as the JAX package does. The
+debug modes "normals" and "complexity" return the mean of the pass's
+samples with alpha 1, unsplatted.
 """
 
 from __future__ import annotations
@@ -14,27 +16,56 @@ from functools import partial
 import torch
 
 from ..core.math import clamp_length, lerp
-from ..core.sampling import GeneratorUniforms, Prefixed
+from ..core.sampling import GeneratorUniforms, Prefixed, best_candidate_2d
 from ..device import resolve_device
 from ..scene.model import Options, SceneFlat
 from .camera import CameraParams, generate_rays
 from .filters import splat
-from .integrator import path_trace
+from .integrator import path_trace, trace_complexity, trace_normals
+
+SAMPLERS = ("random", "stratified", "bluenoise")
+MODES = ("pathtrace", "normals", "complexity")
 
 
 def _sample_grid(width: int, height: int, cam: CameraParams, source,
                  spp: int = 1, sampler: str = "random"):
-    """Raster positions + shutter times: (S, H, W) tensors, plain uniform
-    jitter (the reference's active sampler)."""
-    if sampler != "random":
-        raise NotImplementedError(f"sampler={sampler!r} is ported in slice 4")
+    """Raster positions + shutter times: (S, H, W) tensors.
+
+    "random": plain uniform jitter (the reference's active sampler).
+    "stratified": jitter within the most-square s1 x s2 sub-pixel grid
+    across the pass's spp samples, shutter times stratified over the pass.
+    "bluenoise": the pass's spp sub-pixel positions are one best-candidate
+    point set shared by every pixel and shifted per pixel mod 1 (a
+    Cranley-Patterson rotation); times are one stratified 1-D set shifted
+    per pixel. Both fall back to "random" at 1 spp."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}")
     dev = cam.position.device
-    jitter = source.uniform((0,), (spp, height, width, 2))
+    arange_s = torch.arange(spp, dtype=torch.float32, device=dev)[:, None, None]
+    if sampler == "bluenoise" and spp > 1:
+        pts = best_candidate_2d(spp, Prefixed(source, 3))  # (spp, 2)
+        shift = source.uniform((0,), (1, height, width, 2))
+        jitter = torch.remainder(pts[:, None, None, :] + shift, 1.0)
+        tshift = source.uniform((1,), (1, height, width))
+        tu = torch.remainder((arange_s + 0.5) / spp + tshift, 1.0)
+    else:
+        jitter = source.uniform((0,), (spp, height, width, 2))
+        tu = source.uniform((1,), (spp, height, width))
+    jx, jy = jitter[..., 0], jitter[..., 1]
+    if sampler == "stratified" and spp > 1:
+        s1 = int(math.sqrt(spp))
+        while spp % s1:
+            s1 -= 1
+        s2 = spp // s1
+        sx = torch.remainder(arange_s, s1)
+        sy = torch.div(arange_s, s1, rounding_mode="floor")
+        jx = (sx + jx) / s1
+        jy = (sy + jy) / s2
+        tu = (arange_s + tu) / spp
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, None, :]
     ys = torch.arange(height, dtype=torch.float32, device=dev)[None, :, None]
-    rx = xs + jitter[..., 0]
-    ry = ys + jitter[..., 1]
-    tu = source.uniform((1,), (spp, height, width))
+    rx = xs + jx
+    ry = ys + jy
     times = lerp(cam.shutter_start, cam.shutter_end, tu)
     return rx, ry, times
 
@@ -59,8 +90,8 @@ def render_pass(
 ):
     """One pass of ``samples_per_pass`` spp -> (H, W, 4) RGBA increment.
     ``source``: the UniformSource of the pass (the JAX pass key)."""
-    if mode != "pathtrace":
-        raise NotImplementedError(f"mode={mode!r} is ported in slice 4")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     s = samples_per_pass
     rx, ry, times = _sample_grid(width, height, cam, source, s, sampler)
     raster = torch.stack([rx, ry], dim=-1).reshape(-1, 2)
@@ -68,6 +99,11 @@ def render_pass(
     lens_uv = source.uniform((5,), (s, height, width, 2)).reshape(-1, 2)
     origins, dirs = generate_rays(cam, width, height, raster, lens_uv)
     times_flat = times.reshape(-1)
+
+    if mode != "pathtrace":
+        dbg = trace_normals if mode == "normals" else trace_complexity
+        rgb = dbg(scene, origins, dirs, times_flat).reshape(s, height, width, 3).mean(dim=0)
+        return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
 
     radiance = path_trace(
         scene, origins, dirs, times_flat, max_depth, Prefixed(source, 2),

@@ -13,7 +13,10 @@ Nothing here imports JAX: the caller turns its arrays into numpy.
   ``pool.tri_cdf`` (Tp,), ``pool.tri_planes`` and ``pool.nrm_planes``
   (9, Tp), the JAX tuples of nine planes stacked,
 * ``sky_horizon``, ``sky_zenith``, ``prim_type``, ``prim_light_samples``,
-  ``prim_local_area``, ``prim_bump``.
+  ``prim_local_area``, ``prim_bump``;
+* optional: ``light_pmf`` (P,) and, for a scene with an HDR probe,
+  ``probe.data`` (H, W, 3), ``probe.pdf_x``, ``probe.cdf_x`` (H, W),
+  ``probe.pdf_y``, ``probe.cdf_y`` (H,).
 
 ``static`` holds ``prim_static``, a list of dicts with the ``PrimStatic``
 fields (``mesh`` a dict with the ``MeshHandle`` fields, or None),
@@ -30,7 +33,7 @@ import torch
 from ..accel.traverse import MeshHandle, MeshPool
 from ..device import resolve_device
 from ..render.camera import CameraParams
-from .model import MaterialsFlat, PrimStatic, PrimsFlat, SceneFlat
+from .model import MaterialsFlat, PrimStatic, PrimsFlat, ProbeFlat, SceneFlat
 
 
 def _tensor(a, device, dtype=None):
@@ -65,6 +68,10 @@ def scene_flat_from_numpy(arrays: dict, static: dict, device=None) -> SceneFlat:
             )
         )
 
+    probe = None
+    if "probe.data" in arrays:
+        probe = group(ProbeFlat, "probe")
+    light_pmf = arrays.get("light_pmf")
     return SceneFlat(
         prims=group(PrimsFlat, "prims"),
         materials=group(MaterialsFlat, "materials"),
@@ -85,6 +92,8 @@ def scene_flat_from_numpy(arrays: dict, static: dict, device=None) -> SceneFlat:
         prim_light_samples=_tensor(arrays["prim_light_samples"], device, torch.int32),
         prim_local_area=_tensor(arrays["prim_local_area"], device),
         prim_bump=_tensor(arrays["prim_bump"], device, torch.float32),
+        light_pmf=None if light_pmf is None else _tensor(light_pmf, device, torch.float32),
+        probe=probe,
         prim_static=tuple(prim_static),
         light_indices=tuple(int(i) for i in static["light_indices"]),
         has_bump=bool(static["has_bump"]),

@@ -5,8 +5,10 @@ The port's own copy of ``tinsel_tpu/scene/model.py`` (``Scene.flatten`` at
 mesh is built into the 16-ary traversal layout (``accel/build.py``): node
 rows, 16-triangle leaf blocks and the triangles in block-padded order,
 exactly as the JAX package lays them out with its NumPy builder. Meshes
-that fit one block keep the brute sweep at trace time. HDR probes raise
-(slice 4).
+that fit one block keep the brute sweep at trace time. An HDR probe
+(``HostProbe``) becomes a ``ProbeFlat`` of tensors with its f64-built CDF,
+and ``SceneFlat.light_pmf`` holds the power-proportional light pmf of
+``light_sampling="power"``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,23 @@ from ..device import resolve_device
 SPHERE = 0
 PLANE = 1
 MESH = 2
+
+
+def _light_pmf(prims, local_area):
+    """Power-proportional light-selection pmf (luminance x world area),
+    normalized over emissive primitives; zero elsewhere (port of
+    ``tinsel_tpu/scene/model.py:46``, in f64 as there)."""
+    pmf = np.zeros(max(len(prims), 1), np.float64)
+    for i, p in enumerate(prims):
+        if p.light_samples > 0:
+            e = np.asarray(p.material.emission, np.float64)
+            lum = 0.3 * e[0] + 0.6 * e[1] + 0.1 * e[2]
+            s = float(p.start_transform.s)
+            pmf[i] = max(lum, 1e-12) * max(local_area[i] * s * s, 1e-12)
+    t = pmf.sum()
+    if t > 0:
+        pmf /= t
+    return pmf.astype(np.float32)
 
 
 # ---------------------------------------------------------------------- host
@@ -154,7 +173,42 @@ class Camera:
 class Sky:
     horizon: np.ndarray = field(default_factory=lambda: np.array([0.0, 0.0, 0.0], np.float32))
     zenith: np.ndarray = field(default_factory=lambda: np.array([0.0, 0.0, 0.0], np.float32))
-    probe: Optional[object] = None  # HDR probes are ported in slice 4
+    probe: Optional["HostProbe"] = None
+
+
+@dataclasses.dataclass
+class HostProbe:
+    """Lat-long HDR environment map with a luminance-weighted 2D CDF,
+    built in f64 and stored as f32 (port of
+    ``tinsel_tpu/scene/model.py:216``)."""
+
+    data: np.ndarray  # (H, W, 3) f32 linear radiance
+    pdf_x: np.ndarray = None  # (H, W)
+    cdf_x: np.ndarray = None  # (H, W)
+    pdf_y: np.ndarray = None  # (H,)
+    cdf_y: np.ndarray = None  # (H,)
+
+    def build_cdf(self):
+        lum = (
+            0.3 * self.data[..., 0]
+            + 0.6 * self.data[..., 1]
+            + 0.1 * self.data[..., 2]
+        ).astype(np.float64)
+        row_sum = lum.sum(axis=1, keepdims=True)  # (H, 1)
+        row_sum_safe = np.maximum(row_sum, 1e-30)
+        self.pdf_x = (lum / row_sum_safe).astype(np.float32)
+        self.cdf_x = (np.cumsum(lum, axis=1) / row_sum_safe).astype(np.float32)
+        total = np.maximum(lum.sum(), 1e-30)
+        self.pdf_y = (row_sum[:, 0] / total).astype(np.float32)
+        self.cdf_y = (np.cumsum(row_sum[:, 0]) / total).astype(np.float32)
+
+    @property
+    def width(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def height(self) -> int:
+        return self.data.shape[0]
 
 
 @dataclasses.dataclass
@@ -241,6 +295,15 @@ class PrimsFlat:
 
 
 @dataclasses.dataclass(frozen=True)
+class ProbeFlat:
+    data: torch.Tensor  # (H, W, 3)
+    pdf_x: torch.Tensor  # (H, W)
+    cdf_x: torch.Tensor  # (H, W)
+    pdf_y: torch.Tensor  # (H,)
+    cdf_y: torch.Tensor  # (H,)
+
+
+@dataclasses.dataclass(frozen=True)
 class PrimStatic:
     """Host-side facts about one primitive that shape the computation."""
 
@@ -262,6 +325,8 @@ class SceneFlat:
     prim_light_samples: torch.Tensor  # (P,) i32
     prim_local_area: torch.Tensor  # (P,) f32 (sphere: 4 pi r^2; mesh: area)
     prim_bump: torch.Tensor  # (P, 2) f32 [strength, tile]
+    light_pmf: Optional[torch.Tensor] = None  # (P,) f32, power-proportional
+    probe: Optional[ProbeFlat] = None
     prim_static: tuple = ()
     light_indices: tuple = ()
     has_bump: bool = False  # some material has bump > 0
@@ -280,8 +345,6 @@ class Scene:
     def flatten(self, device=None) -> SceneFlat:
         """Device tensors of the scene on ``device`` (``None``: cuda)."""
         device = resolve_device(device)
-        if self.sky.probe is not None:
-            raise NotImplementedError("HDR probes are ported in slice 4")
         if not self.primitives:
             # sky-only scene: one invisible primitive keeps every table
             # non-empty; rays can never hit it
@@ -444,6 +507,15 @@ class Scene:
                 )
             )
 
+        probe_flat = None
+        if self.sky.probe is not None:
+            hp = self.sky.probe
+            if hp.cdf_x is None:
+                hp.build_cdf()
+            probe_flat = ProbeFlat(**{
+                k: t(getattr(hp, k)) for k in ("data", "pdf_x", "cdf_x", "pdf_y", "cdf_y")
+            })
+
         local_area = []
         for p in prims:
             if p.type == SPHERE:
@@ -463,6 +535,8 @@ class Scene:
             prim_light_samples=t([p.light_samples for p in prims], torch.int32),
             prim_local_area=t(local_area),
             prim_bump=t([[p.material.bump, p.material.bump_tile] for p in prims]),
+            light_pmf=t(_light_pmf(prims, local_area)),
+            probe=probe_flat,
             prim_static=tuple(prim_static),
             light_indices=tuple(
                 i for i, p in enumerate(prims) if p.light_samples > 0

@@ -22,6 +22,7 @@ from .model import (
     Sky,
     SPHERE,
 )
+from .probe_io import create_test_probe
 from .procedural import capsule, sphere, tetrahedron
 
 
@@ -130,9 +131,9 @@ def envmesh_scene(width: int = 256, height: int = 256, max_depth: int = 4,
                   detail: int = 256, probe: bool = False) -> Scene:
     """A Perlin-displaced sphere of 2 * detail^2 triangles over a ground
     plane under the gradient sky: the heavy-traversal scene, analog of the
-    reference's environment-lit ~500k-triangle bust."""
-    if probe:
-        raise NotImplementedError("envmesh_scene(probe=True): HDR probes are ported in slice 4")
+    reference's environment-lit ~500k-triangle bust. ``probe=True`` lights
+    it with the procedural HDR probe instead (probe NEE and escape-ray MIS
+    on a big mesh): the full ajaxenv configuration."""
     scene = Scene()
     scene.camera = Camera(
         position=np.array([0.0, 1.0, 3.2], np.float32),
@@ -146,6 +147,8 @@ def envmesh_scene(width: int = 256, height: int = 256, max_depth: int = 4,
         horizon=np.array([0.9, 0.85, 0.75], np.float32),
         zenith=np.array([0.25, 0.4, 0.75], np.float32),
     )
+    if probe:
+        scene.sky.probe = create_test_probe(128, 64)
     mesh = sphere(radius=0.8, n_theta=detail, n_phi=detail)
     # radial Perlin displacement: an irregular BVH, like a scanned bust
     p = mesh.positions
