@@ -6,7 +6,8 @@
 Phases, each fatal on failure (exit code 1):
 
 1. the card: device name and ``nvidia-smi`` name and power limit;
-2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (nvcc, sm_90a)
+   and the BVH builder ``native/bvh_builder.cpp`` (g++), all at once;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path and a few more (K1 at 37x53, 512^2 and
    2160x3840, r = 1 and 2; K2 at 33x49, 512^2 and 2160x3840 at r = 2, and
@@ -33,7 +34,9 @@ Phases, each fatal on failure (exit code 1):
 8. the gradient step (``render_loss_and_grads``) on cornell and envmesh
    512x512 depth 4: card against CPU at equal draws at 64x64, peak
    memory, the fwd+bwd / fwd ratio at matched spp and the backward's top
-   kernels; then 10 steps of the inverse-rendering trainer at 512x512;
+   kernels, each for the package's material gather (one-hot backward) and
+   for the advanced-indexing gather it replaced (a copy kept here), in
+   turns; then 10 steps of the inverse-rendering trainer at 512x512;
 9. the rest of the integrator: K7 (the walk's step count) against its
    plain version on envmesh's 512x512 camera rays (captured from a
    complexity pass), envmesh's first bounce and the 524k sphere, exactly,
@@ -45,7 +48,28 @@ Phases, each fatal on failure (exit code 1):
    probe=True)`` at 16 spp -> ``resolve`` -> ``nlm_denoise`` with K3/K4/K1
    counts reset just before and read just after, the same scene's
    complexity view (K7's count) and ``adaptive_render`` at a 16-spp
-   budget; then one profiled pass of the probe scene.
+   budget; then one profiled pass of the probe scene;
+10. the trace as torch ops (what kernels K5 and K6 would replace): one
+    Cornell pass's trace_closest / trace_any calls (1M rays each) and one
+    many_mesh pass's shortlist rounds, replayed under the profiler:
+    device ms, launches and bound;
+11. scene files: every scene file of the repository that needs no asset
+    from outside it, loaded through the port (``load_tin`` /
+    ``load_tungsten``, mesh cache cold), flattened on the card and
+    rendered at its own width, height and maxDepth at 4 spp, K3/K4
+    counts reset just before the renders and read just after; then
+    ``veach_mis.json`` on the card against the CPU at equal draws;
+12. ``scenes/ajaxenv.tin`` at real size with stand-ins for its two
+    assets, written here: a binary PLY of the Perlin sphere at 267,912
+    triangles (the scan it replaces has 268k) and a 1024x512 Radiance
+    ``.hdr`` with RLE scanlines; cold import split into its steps (PLY
+    parse, normalize, normals and CDF, native SAH build, wide collapse,
+    cache write), warm import from the cache (flattened scenes equal),
+    ``load_probe``, flatten; the 500x500 render at maxDepth 64, 4 spp,
+    with K3/K4 counts reset just before and read just after; one profiled
+    pass; the card against the CPU at equal draws at 32x32.
+
+The 524k sphere's tree (phase 6) comes from the native builder.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
@@ -58,8 +82,10 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,6 +122,18 @@ GRAD_TOL = 1e-3  # card vs CPU gradients at equal draws, normalized per leaf
 # the u + v add)
 NODE_BYTES, BLOCK_BYTES, RAY_BYTES, OFFSET_BYTES = 288, 768, 28, 8
 SLAB_OPS, TRI_OPS = 25, 59
+# the sweep's f32 operations (geometry/intersect.py): a sphere test with
+# its hit point and normal (q, two dots, the discriminant, root, both
+# roots ordered and picked, p and n: 45; 32 for an occlusion test), a
+# plane test (two dots, the division, the tests: 16), and merging one row
+# into the best hit (finite, two compares, two ands, the t, prim and
+# normal selects: 9)
+SPHERE_OPS, SPHERE_ANY_OPS, PLANE_OPS, MERGE_OPS = 45, 32, 16, 9
+SCENE_FILE_SPP = 4
+# scene files whose meshes or probe lie outside the repository
+EXTERNAL_ASSET_SCENES = ("ajax", "ajaxenv", "sportscar", "table")
+AJAXENV_DETAIL = 366  # 2 * 366^2 = 267,912 triangles: the scan has 268k
+PROBE_W, PROBE_H = 1024, 512
 
 
 def fail(msg: str):
@@ -637,11 +675,14 @@ def sphere_workload(dev):
 
     t0 = time.perf_counter()
     m = sphere(radius=1.0, n_theta=512, n_phi=512)
-    m.build()
+    t1 = time.perf_counter()
+    m.build()  # normals, CDF, SAH tree (native: 4,096 triangles or more)
+    t2 = time.perf_counter()
     sc = Scene()
     sc.add_primitive(Primitive(type=MESH, mesh=m))
-    flat = sc.flatten(dev)
-    build_s = time.perf_counter() - t0
+    flat = sc.flatten(dev)  # the native wide collapse, then to the card
+    t3 = time.perf_counter()
+    build_s = t3 - t0
     h = flat.prim_static[0].mesh
     g = np.linspace(-1.2, 1.2, 256, dtype=np.float32)
     x, y = np.meshgrid(g, g)
@@ -650,7 +691,8 @@ def sphere_workload(dev):
     d = torch.tensor([[1e-5, 1e-5, 1.0]], device=dev).repeat(r, 1)
     tmax = torch.full((r,), float("inf"), device=dev)
     emit(dict(phase="sphere524k", triangles=h.real_tris, nodes=h.num_nodes,
-              stack_slots=h.stack_slots, host_build_s=build_s))
+              stack_slots=h.stack_slots, builder="native", host_build_s=build_s,
+              mesh_s=t1 - t0, build_s=t2 - t1, flatten_s=t3 - t2))
     return (flat.pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
 
 
@@ -702,9 +744,9 @@ def bvh_kernel_phase(dev):
 # ---------------------------------------------------------- big meshes
 
 
-def spp_per_pass(spp: int) -> int:
-    """Samples a pass of about 1M rays takes at BIG_W x BIG_H."""
-    return max(1, min(spp, (1 << 20) // (BIG_W * BIG_H)))
+def spp_per_pass(spp: int, w: int = BIG_W, h: int = BIG_H) -> int:
+    """Samples a pass of about 1M rays takes at w x h."""
+    return max(1, min(spp, (1 << 20) // (w * h)))
 
 
 def big_scenes():
@@ -797,11 +839,20 @@ def bigmesh_path(ops_bvh, dev):
     return launches, per_scene
 
 
+def device_events(prof):
+    """(name, ms) of each device record (kernel, copy) of a profiler
+    session, read from its raw records: ``key_averages`` first builds the
+    profiler's event tree, which takes minutes for a pass of ~100k ops."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def walks_in_pass(dev, scenes, flats, per_scene, entries=BIG_SCENES, phase="bigmesh_walks_in_pass"):
     """Device time of the bvh_* kernels inside one pass of each big-mesh
     scene (``entries``: (name, depth, spp)), from torch.profiler's records
     of the card's kernels, and the pass's device idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tinsel_tpu_torch.core.sampling import GeneratorUniforms
@@ -810,29 +861,35 @@ def walks_in_pass(dev, scenes, flats, per_scene, entries=BIG_SCENES, phase="bigm
     rec = {}
     for name, _, spp in entries:
         flat, cam = flats[name]
-        step = make_accumulate_fn(scenes[name].options, spp_per_pass(spp))
-        accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
+        o = scenes[name].options
+        step = make_accumulate_fn(o, spp_per_pass(spp, o.width, o.height))
+        accum = torch.zeros((o.height, o.width, 4), device=dev)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(accum, flat, cam, GeneratorUniforms(4, dev), 0)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        walks = [e for e in kernels if "bvh_" in e.key]
-        walk_ms = sum(e.self_device_time_total for e in walks) / 1e3
+        events = device_events(prof)
+        busy = sum(ms for _, ms in events)
+        walks = {}
+        for key, ms in events:
+            if "bvh_" in key:
+                count, total = walks.get(key[:40], (0, 0.0))
+                walks[key[:40]] = (count + 1, total + ms)
+        walk_ms = sum(ms for _, ms in walks.values())
         rec[name] = dict(
+            size=f"{o.width}x{o.height}", depth=o.max_depth,
             pass_ms_timed_run=per_scene[name]["pass_ms"], profiled_wall_ms=wall_ms,
             device_busy_ms=busy if busy > 0 else "not measured",
             walk_device_ms=walk_ms if busy > 0 else "not measured",
-            walk_launches=sum(e.count for e in walks),
+            walk_launches=sum(c for c, _ in walks.values()),
             walk_share_of_pass=walk_ms / per_scene[name]["pass_ms"] if busy > 0 else None,
             walk_share_of_busy=walk_ms / busy if busy > 0 else None,
             idle_share_profiled=1.0 - busy / wall_ms if busy > 0 else "not measured",
-            walk_kernels={e.key[:40]: [e.count, e.self_device_time_total / 1e3] for e in walks},
+            walk_kernels={k: list(v) for k, v in walks.items()},
         )
-    emit(dict(phase=phase, size=f"{BIG_W}x{BIG_H}", scenes=rec))
+    emit(dict(phase=phase, scenes=rec))
     return rec
 
 
@@ -888,19 +945,29 @@ def gradient_equal_draw_phase(dev):
                 fail(f"card and CPU gradients disagree at equal draws: {rec}")
 
 
+def _old_select(self, i):
+    """``MaterialsFlat.select`` before its one-hot backward, kept here for
+    the A/B of gradient_phase: advanced indexing, whose backward is the
+    accumulating index_put."""
+    i = i.long()
+    return type(self)(**{f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)})
+
+
 def gradient_phase(ops_bvh, dev):
     """The gradient step at full size on cornell and envmesh 512x512
     depth 4, 1 spp: finite loss and gradients, some nonzero; peak device
     memory; fwd+bwd / fwd at matched spp (bench.py:159-204: the same pass
-    with and without its backward, CUDA events, alternating, medians);
-    the backward's top kernels from the profiler. K3 counts are reset
-    just before and read just after."""
+    with and without its backward, CUDA events, medians) and the
+    backward's device time and top kernels from the profiler, each for the
+    package's material gather and for ``_old_select``, in the turns new,
+    old, old, new. K3 counts are reset just before and read just after."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tinsel_tpu_torch.core.sampling import GeneratorUniforms
     from tinsel_tpu_torch.diff.gradients import render_loss, render_loss_and_grads
     from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene import model
     from tinsel_tpu_torch.scene.presets import cornell_scene, envmesh_scene
 
     opts = dict(width=BIG_W, height=BIG_H, max_depth=4)
@@ -932,46 +999,67 @@ def gradient_phase(ops_bvh, dev):
             with torch.no_grad():
                 render_loss(flat, cam, GeneratorUniforms(i, dev), target, **opts)
 
-        times = {"fwd_bwd": [], "fwd": []}
-        for i in range(2):
-            for key, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd), ("fwd_bwd", fwd_bwd), ("fwd", fwd)):
-                times[key].append(_event_ms(lambda: fn(i), 1))
-        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-
-        # the backward alone under the profiler
-        mats = dataclasses.replace(flat.materials, **{
-            f.name: getattr(flat.materials, f.name).clone().requires_grad_(True)
-            for f in dataclasses.fields(flat.materials)})
-        cam_l = dataclasses.replace(cam, **{
-            f.name: getattr(cam, f.name).clone().requires_grad_(True)
-            for f in dataclasses.fields(cam)})
-        ls = render_loss(dataclasses.replace(flat, materials=mats), cam_l,
-                         GeneratorUniforms(5, dev), target, **opts)
-        ins = [getattr(o, f.name) for o in (mats, cam_l) for f in dataclasses.fields(o)]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            torch.autograd.grad(ls, ins, allow_unused=True)
+        def backward_profile():
+            """The backward alone under the profiler."""
+            mats = dataclasses.replace(flat.materials, **{
+                f.name: getattr(flat.materials, f.name).clone().requires_grad_(True)
+                for f in dataclasses.fields(flat.materials)})
+            cam_l = dataclasses.replace(cam, **{
+                f.name: getattr(cam, f.name).clone().requires_grad_(True)
+                for f in dataclasses.fields(cam)})
+            ls = render_loss(dataclasses.replace(flat, materials=mats), cam_l,
+                             GeneratorUniforms(5, dev), target, **opts)
+            ins = [getattr(o, f.name) for o in (mats, cam_l) for f in dataclasses.fields(o)]
             torch.cuda.synchronize()
-            bwd_wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-        scatter_ms = sum(e.self_device_time_total for e in kernels
-                         if "index" in e.key.lower() or "scatter" in e.key.lower()) / 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                torch.autograd.grad(ls, ins, allow_unused=True)
+                torch.cuda.synchronize()
+                bwd_wall = (time.perf_counter() - t0) * 1e3
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+            scatter_ms = sum(e.self_device_time_total for e in kernels
+                             if "index" in e.key.lower() or "scatter" in e.key.lower()) / 1e3
+            return dict(
+                backward_wall_ms=bwd_wall,
+                backward_device_busy_ms=busy if busy > 0 else "not measured",
+                backward_index_scatter_ms=scatter_ms,
+                scatter_share_of_backward=scatter_ms / busy if busy > 0 else "not measured",
+                backward_top_kernels=[[e.key[:70], e.count, e.self_device_time_total / 1e3]
+                                      for e in top],
+            )
+
+        # the package's gather ("new") and the one it replaced ("old"), in
+        # turns; each turn times one forward and one forward + backward
+        gathers = {"new": model.MaterialsFlat.select, "old": _old_select}
+        times = {v: {"fwd": [], "fwd_bwd": []} for v in gathers}
+        ab = {}
+        try:
+            for i, v in enumerate(("new", "old", "old", "new")):
+                model.MaterialsFlat.select = gathers[v]
+                for key, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+                    times[v][key].append(_event_ms(lambda: fn(i), 1))
+            for v in gathers:
+                model.MaterialsFlat.select = gathers[v]
+                med = {k: statistics.median(t) for k, t in times[v].items()}
+                ab[v] = dict(fwd_ms=med["fwd"], fwd_bwd_ms=med["fwd_bwd"],
+                             fwd_bwd_over_fwd=med["fwd_bwd"] / med["fwd"],
+                             fwd_bwd_rays_per_s=BIG_W * BIG_H * 4 / (med["fwd_bwd"] / 1e3),
+                             **backward_profile())
+        finally:
+            model.MaterialsFlat.select = gathers["new"]
+        new = ab["new"]
         emit(dict(
             phase="gradient_step", scene=f"{name} {BIG_W}x{BIG_H} d4 1spp", loss=float(loss),
             nonzero_leaves=len(nonzero), max_memory_allocated_gib=peak / 2**30,
-            fwd_bwd_ms=med["fwd_bwd"], fwd_ms=med["fwd"],
-            fwd_bwd_over_fwd=med["fwd_bwd"] / med["fwd"],
-            fwd_bwd_rays_per_s=BIG_W * BIG_H * 4 / (med["fwd_bwd"] / 1e3),
-            launches=launches, backward_wall_ms=bwd_wall,
-            backward_device_busy_ms=busy if busy > 0 else "not measured",
-            backward_index_scatter_ms=scatter_ms,
-            backward_top_kernels=[[e.key[:70], e.count, e.self_device_time_total / 1e3]
-                                  for e in top],
+            launches=launches, **new,
+            old_gather=ab["old"],
+            backward_busy_new_over_old=(
+                new["backward_device_busy_ms"] / ab["old"]["backward_device_busy_ms"]
+                if isinstance(new["backward_device_busy_ms"], float) else "not measured"),
         ))
-        del flat, cam, loss, grads, leaves, ls, ins, mats, cam_l, prof
+        del flat, cam, loss, grads, leaves
 
 
 def trainer_phase(dev):
@@ -1243,6 +1331,468 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     return launches
 
 
+# ------------------------------------------ the trace as torch ops (K5, K6)
+
+
+def capture_calls(targets, run):
+    """Run ``run()`` with every (module, name) of ``targets`` wrapped to
+    record its arguments (tensors cloned): {name: [(args, kwargs), ...]}."""
+    calls = {name: [] for _, name in targets}
+    orig = {(m, name): getattr(m, name) for m, name in targets}
+    for (m, name), fn in orig.items():
+        def wrapped(*a, _name=name, _fn=fn, **k):
+            calls[_name].append((tuple(x.clone() if torch.is_tensor(x) else x for x in a), k))
+            return _fn(*a, **k)
+        setattr(m, name, wrapped)
+    try:
+        run()
+    finally:
+        for (m, name), fn in orig.items():
+            setattr(m, name, fn)
+    return calls
+
+
+def profiled(run):
+    """One run under the profiler: device busy ms and kernel launches in
+    all and of the walk kernels (bvh_*), and its wall ms there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    walks = [ms for key, ms in events if "bvh_" in key]
+    busy = sum(ms for _, ms in events)
+    if busy <= 0:
+        fail("the profiler recorded no device time")
+    return dict(device_ms=busy, launches=len(events), walk_device_ms=sum(walks),
+                walk_launches=len(walks), profiled_wall_ms=wall)
+
+
+def sweep_work(flat, rays: int, closest: bool):
+    """(bytes, f32 operations) of K5, the sweep over spheres, planes and
+    tiny meshes: each ray's origin, direction and time in (and its tmax
+    for an occlusion test), the hit (t, prim, normal) or the occlusion bit
+    out; per ray each sphere, plane and tiny-mesh triangle tested once,
+    and for the closest hit each row merged into the best."""
+    from tinsel_tpu_torch.scene.model import MESH, PLANE, SPHERE
+
+    per_ray = 0
+    for ps in flat.prim_static:
+        if ps.type == SPHERE:
+            per_ray += SPHERE_OPS if closest else SPHERE_ANY_OPS
+        elif ps.type == PLANE:
+            per_ray += PLANE_OPS
+        elif ps.type == MESH and ps.mesh.num_tris <= 16:
+            per_ray += ps.mesh.real_tris * TRI_OPS
+        else:
+            continue
+        per_ray += MERGE_OPS if closest else 0
+    return rays * (48 if closest else 33), rays * per_ray
+
+
+def rounds_work(inst: int, rays: int, rounds: int, closest: bool):
+    """(bytes, f32 operations) of K6's own work, the shortlist rounds
+    around the walks: the (I, R) box-entry table read once, each ray's
+    best t (or tmax and occlusion) in, the local rays of the walked
+    candidates read once (at most all I of them), and (t, tri, inst) or
+    the occlusion bit out; each of the k picks of a round compares the I
+    entries of every ray."""
+    from tinsel_tpu_torch.render.trace import INSTANCE_TOPK
+
+    walked = min(inst, rounds * INSTANCE_TOPK)
+    lane = 4 + 16 if closest else 4 + 1 + 1
+    return 4 * inst * rays + 24 * walked * rays + lane * rays, rounds * INSTANCE_TOPK * inst * rays
+
+
+def trace_ops_phase(dev):
+    """K5 and K6 as the port runs them, torch ops (K6 around the walk
+    kernels), replayed on the arguments captured from one pass: K5 as
+    trace_closest / trace_any of a Cornell pass (512x512, 4 spp: 1M rays a
+    call; 5 planes, 2 spheres and the 2-triangle light), bounce 0 alone
+    and the whole pass; K6 as the shortlist rounds of a many_mesh pass
+    (48 meshes, 512x512, 4 spp, depth 2), the first call of each form and
+    the whole pass, beside the whole trace_closest call around the first.
+    Device ms and launches from the profiler, the call's
+    ms under CUDA events, and the bound of the work (``sweep_work``,
+    ``rounds_work``)."""
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.render import integrator, lights, trace
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+    from tinsel_tpu_torch.scene.presets import cornell_scene, many_mesh_scene
+
+    def one_pass(sc):
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+        spp = spp_per_pass(4)
+        with torch.no_grad():
+            make_render_pass(sc.options, spp)(flat, cam, GeneratorUniforms(9, dev))
+        return flat
+
+    def record(what, fn, calls, work, extra=None):
+        first = profiled(lambda: fn(*calls[0][0], **calls[0][1]))
+        whole = profiled(lambda: [fn(*a, **k) for a, k in calls])
+        with torch.no_grad():
+            call_ms = _event_ms(lambda: fn(*calls[0][0], **calls[0][1]), 1)
+        bound_ms, bound_by = bound(work(first))
+        own_ms = first["device_ms"] - first["walk_device_ms"]
+        rec = dict(phase="trace_ops", what=what, first_call=first, call_ms=call_ms,
+                   own_device_ms=own_ms, own_launches=first["launches"] - first["walk_launches"],
+                   bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / own_ms,
+                   calls_per_pass=len(calls), pass_device_ms=whole["device_ms"],
+                   pass_launches=whole["launches"],
+                   pass_own_device_ms=whole["device_ms"] - whole["walk_device_ms"],
+                   pass_own_launches=whole["launches"] - whole["walk_launches"], **(extra or {}))
+        emit(rec)
+        return rec
+
+    recs = {}
+    sc = cornell_scene(BIG_W, BIG_H, 4)
+    box = {}
+    calls = capture_calls(((integrator, "trace_closest"), (lights, "trace_any")),
+                          lambda: box.setdefault("flat", one_pass(sc)))
+    flat = box["flat"]
+    for name, fn, closest in (("trace_closest", trace.trace_closest, True),
+                              ("trace_any", trace.trace_any, False)):
+        rays = calls[name][0][0][1].shape[0]
+        recs[f"K5 {name}"] = record(
+            f"K5 cornell {name}", fn, calls[name],
+            lambda _first, r=rays, c=closest: sweep_work(flat, r, c), dict(rays=rays))
+
+    sc = many_mesh_scene(48, BIG_W, BIG_H, 2)
+    calls = capture_calls(((trace, "_instance_rounds"), (trace, "_instance_rounds_any"),
+                           (integrator, "trace_closest")), lambda: one_pass(sc))
+    # the whole closest-hit trace of bounce 0, around the rounds: the
+    # instances' local rays and box tests over every (instance, ray) pair
+    args, kw = calls["trace_closest"][0]
+    whole = profiled(lambda: trace.trace_closest(*args, **kw))
+    emit(dict(phase="trace_ops", what="many_mesh trace_closest bounce 0 (whole call)",
+              rays=args[1].shape[0], **whole))
+    del args, kw
+    for name, closest in (("_instance_rounds", True), ("_instance_rounds_any", False)):
+        o_l = calls[name][0][0][1]
+        inst, rays = o_l.shape[:2]
+        recs[f"K6 {name}"] = record(
+            f"K6 many_mesh {name}", getattr(trace, name), calls[name],
+            lambda first, i=inst, r=rays, c=closest: rounds_work(i, r, first["walk_launches"], c),
+            dict(instances=inst, rays=rays))
+    return recs
+
+
+# ------------------------------------------------------------- scene files
+
+
+def scene_file_paths():
+    """Every scene file of the repository that needs no asset from
+    outside it."""
+    scenes = ROOT / "scenes"
+    tins = [p for p in sorted(scenes.glob("*.tin")) if p.stem not in EXTERNAL_ASSET_SCENES]
+    return (tins + sorted(scenes.glob("*.json"))
+            + [ROOT / "tests" / "data" / f"{n}_parity.tin" for n in ("cornell", "glass")])
+
+
+def load_scene_file(path):
+    from tinsel_tpu_torch.scene.loaders.tin import load_tin
+    from tinsel_tpu_torch.scene.loaders.tungsten import load_tungsten
+
+    return (load_tungsten if path.suffix == ".json" else load_tin)(str(path))
+
+
+def mesh_triangles(sc):
+    return [len(p.mesh.indices) for p in sc.primitives if p.mesh is not None]
+
+
+def accumulate(sc, flat, cam, spp: int, dev, seed: int = 0):
+    """``spp`` samples of the scene's own options in passes of about 1M
+    rays, as ``render`` takes them: (accumulation buffer, seconds, passes)."""
+    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.render.renderer import make_accumulate_fn
+
+    o = sc.options
+    spp_pass = spp_per_pass(spp, o.width, o.height)
+    if spp % spp_pass:
+        fail(f"{spp} spp do not split into passes of {spp_pass}")
+    step = make_accumulate_fn(o, spp_pass)
+    source = GeneratorUniforms(seed, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accum = torch.zeros((o.height, o.width, 4), device=dev)
+    for c in range(spp // spp_pass):
+        accum = step(accum, flat, cam, source, c)
+    torch.cuda.synchronize()
+    return accum, time.perf_counter() - t0, spp // spp_pass
+
+
+def equal_draws_small(sc, w: int, h: int, depth: int, what: str, dev):
+    """The scene at w x h and depth min(its own, depth), 1 spp, on the card
+    and on the CPU at equal draws (``compare_renders``)."""
+    from tinsel_tpu_torch.core.sampling import NumpyUniforms
+    from tinsel_tpu_torch.render.renderer import render
+
+    small = dataclasses.replace(sc, options=dataclasses.replace(
+        sc.options, width=w, height=h, max_depth=min(sc.options.max_depth, depth)))
+    a, b = (render(small, spp=1, device=d, source=NumpyUniforms(7, d))
+            for d in (dev, torch.device("cpu")))
+    compare_renders(a, b, what)
+
+
+def scene_files_phase(ops_bvh, dev):
+    """Each scene file: load (the mesh cache cold), flatten on the card,
+    then SCENE_FILE_SPP spp at the file's own width, height and maxDepth
+    with K3/K4 counts reset just before the renders and read just after;
+    the image finite with a nonzero mean. Then veach_mis.json (the knob's
+    2,208 triangles through K3/K4) on the card against the CPU at equal
+    draws, 64x64 depth 4. Returns the renders' K3/K4 launches."""
+    from tinsel_tpu_torch.core.color import resolve
+    from tinsel_tpu_torch.render.camera import CameraParams
+
+    loaded = {}
+    for path in scene_file_paths():
+        t0 = time.perf_counter()
+        sc = load_scene_file(path)
+        t1 = time.perf_counter()
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+        torch.cuda.synchronize()
+        loaded[path.name] = (sc, flat, cam, t1 - t0, time.perf_counter() - t1)
+    if 2208 not in mesh_triangles(loaded["veach_mis.json"][0]):
+        fail("veach_mis.json: the knob (2,208 triangles) did not load")
+
+    ops_bvh.reset_launch_counts()
+    per = {}
+    for name, (sc, flat, cam, load_s, flatten_s) in loaded.items():
+        before = dict(ops_bvh.launch_counts)
+        accum, secs, passes = accumulate(sc, flat, cam, SCENE_FILE_SPP, dev)
+        mean = float(resolve(accum).mean())
+        if not bool(torch.isfinite(accum).all()) or not mean > 0:
+            fail(f"scene file {name}: the image is not finite or is black (mean {mean})")
+        o = sc.options
+        per[name] = dict(
+            size=f"{o.width}x{o.height}", depth=o.max_depth, triangles=sum(mesh_triangles(sc)),
+            load_s=load_s, flatten_s=flatten_s, passes=passes,
+            ms_per_spp=secs * 1e3 / SCENE_FILE_SPP, image_mean=mean,
+            launches={k: ops_bvh.launch_counts[k] - before[k] for k in ("bvh_closest", "bvh_any")})
+    launches = {k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}
+    emit(dict(phase="scene_files", spp=SCENE_FILE_SPP, files=len(per), scenes=per,
+              launches=launches))
+    if min(launches.values()) < 1:
+        fail(f"scene files: a BVH kernel was never launched: {launches}")
+    equal_draws_small(loaded["veach_mis.json"][0], 64, 64, 4, "veach_mis.json 64x64 d4 1spp", dev)
+    return launches
+
+
+def perlin_sphere(detail: int):
+    """envmesh's Perlin-displaced sphere (``presets.envmesh_scene``,
+    2 * detail^2 triangles) as (positions, indices), not built."""
+    from tinsel_tpu_torch.scene.procedural import sphere
+    from tinsel_tpu_torch.utils.perlin import fractal3d
+
+    m = sphere(radius=0.8, n_theta=detail, n_phi=detail)
+    p = m.positions
+    disp = np.asarray(fractal3d(p[:, 0] * 3.0, p[:, 1] * 3.0, p[:, 2] * 3.0, octaves=4),
+                      np.float32)
+    r = np.linalg.norm(p, axis=-1, keepdims=True)
+    pos = (p / np.maximum(r, 1e-9)) * (0.8 + 0.18 * disp[:, None]).astype(np.float32)
+    return pos.astype(np.float32), m.indices
+
+
+def probe_image(w: int, h: int):
+    """A lat-long sky of w x h: a gradient from horizon to zenith, a sun
+    disc of radiance 2,000, a darker, grainy ground and seeded cloud
+    noise in 8x8 blocks."""
+    rng = np.random.default_rng(5)
+    v = (np.arange(h, dtype=np.float32)[:, None] + 0.5) / h  # 0 = up
+    u = (np.arange(w, dtype=np.float32)[None, :] + 0.5) / w
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)
+    sky = (np.array([0.9, 0.85, 0.75], np.float32) * (1 - up)[..., None]
+           + np.array([0.25, 0.4, 0.75], np.float32) * up[..., None])
+    img = np.broadcast_to(sky, (h, w, 3)).copy()
+    img[v[:, 0] > 0.5] *= 0.3
+    cloud = np.repeat(np.repeat(rng.random((h // 8, w // 8)), 8, 0), 8, 1)[:h, :w]
+    img *= (0.8 + 0.4 * cloud)[..., None].astype(np.float32)
+    # per-pixel grain on the ground: literal spans in the RLE scanlines
+    img[h // 2:] *= (0.9 + 0.2 * rng.random((h - h // 2, w, 1))).astype(np.float32)
+    sun = ((u - 0.3) ** 2 * 4 + (v - 0.2) ** 2) < 0.02 ** 2
+    img[sun] = 2000.0
+    return img.astype(np.float32)
+
+
+def write_rle_hdr(path, img):
+    """A Radiance .hdr of ``img`` with new-style RLE scanlines (a run of 3
+    to 127 equal bytes as 128 + n and the byte, else literals of up to 128
+    bytes), RGBE quantized as ``io/hdr.py::save_hdr`` does. Returns the
+    (H, W, 4) RGBE bytes."""
+    img = np.maximum(np.asarray(img, np.float32), 0.0)
+    h, w = img.shape[:2]
+    maxc = img.max(axis=-1)
+    nz = maxc > 1e-32
+    m, ex = np.frexp(maxc)
+    scale = np.where(nz, m * 256.0 / np.maximum(maxc, 1e-32), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(nz, ex + 128, 0).astype(np.uint8)
+    out = bytearray(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n" + f"-Y {h} +X {w}\n".encode())
+    for y in range(h):
+        out += bytes((2, 2, w >> 8, w & 255))
+        for c in range(4):
+            row = rgbe[y, :, c]
+            # starts of the runs of equal bytes
+            starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]]).tolist() + [w]
+            lit = []
+            for a, b in zip(starts[:-1], starts[1:]):
+                n = b - a
+                if n < 3:
+                    lit.extend(row[a:b].tolist())
+                    continue
+                for i in range(0, len(lit), 128):
+                    out += bytes((len(lit[i:i + 128]),)) + bytes(lit[i:i + 128])
+                lit = []
+                while n > 0:
+                    k = min(n, 127)
+                    if k < 3:  # a tail too short for a run
+                        out += bytes((k,)) + bytes([int(row[a])] * k)
+                    else:
+                        out += bytes((128 + k, int(row[a])))
+                    n -= k
+            for i in range(0, len(lit), 128):
+                out += bytes((len(lit[i:i + 128]),)) + bytes(lit[i:i + 128])
+    Path(path).write_bytes(bytes(out))
+    return rgbe
+
+
+def flats_equal(a, b) -> bool:
+    """Two flattened scenes (or parts of one) equal: tensors bit for bit
+    (node rows hold NaN-packed empty boxes)."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return type(a) is type(b) and all(
+            flats_equal(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                                b.reshape(-1).contiguous().view(torch.uint8)))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(flats_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
+    """scenes/ajaxenv.tin with stand-ins for its two assets (written into
+    ``tmp``), through the port's loaders at real size; see the module
+    docstring, item 12. Returns the render's K3/K4 launches."""
+    from tinsel_tpu_torch.accel.build import build_wide_bvh
+    from tinsel_tpu_torch.core.color import resolve
+    from tinsel_tpu_torch.io.hdr import load_hdr
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene.loaders import mesh_io
+    from tinsel_tpu_torch.scene.loaders.tin import load_tin
+    from tinsel_tpu_torch.scene.probe_io import load_probe
+
+    # the stand-ins
+    t0 = time.perf_counter()
+    pos, idx = perlin_sphere(AJAXENV_DETAIL)
+    ply = tmp / "igea_standin.ply"
+    mesh_io.save_ply(str(ply), pos, idx)
+    t1 = time.perf_counter()
+    hdr = tmp / "loft_standin.hdr"
+    rgbe = write_rle_hdr(hdr, probe_image(PROBE_W, PROBE_H))
+    t2 = time.perf_counter()
+    text = (ROOT / "scenes" / "ajaxenv.tin").read_text()
+    for old, new in (("../../reference/data/meshes/igea.ply", ply),
+                     ("../../reference/data/probes/loft.hdr", hdr)):
+        if text.count(old) != 1:
+            fail(f"ajaxenv.tin no longer names {old} once")
+        text = text.replace(old, str(new))
+    tin = tmp / "ajaxenv.tin"
+    tin.write_text(text)
+
+    # the cold import step by step, as import_mesh takes it
+    s0 = time.perf_counter()
+    m = mesh_io.import_ply(str(ply))
+    s1 = time.perf_counter()
+    m.normalize()
+    s2 = time.perf_counter()
+    m.calculate_normals()
+    m.rebuild_cdf()
+    s3 = time.perf_counter()
+    m.rebuild_bvh()
+    s4 = time.perf_counter()
+    wide = build_wide_bvh(m.bvh)
+    s5 = time.perf_counter()
+    mesh_io.save_mesh_cache(str(tmp / "steps.npz"), m)
+    s6 = time.perf_counter()
+    cold_steps = dict(ply_parse_s=s1 - s0, normalize_s=s2 - s1, normals_and_cdf_s=s3 - s2,
+                      native_sah_build_s=s4 - s3, wide_collapse_s=s5 - s4,
+                      cache_write_s=s6 - s5)
+
+    # the scene file: cold (imports the PLY, writes the cache), then warm
+    t3 = time.perf_counter()
+    cold = load_tin(str(tin))
+    t4 = time.perf_counter()
+    warm = load_tin(str(tin))
+    t5 = time.perf_counter()
+    probe = load_probe(str(hdr))
+    t6 = time.perf_counter()
+    tris = mesh_triangles(cold)
+    if len(idx) not in tris or mesh_triangles(warm) != tris:
+        fail(f"ajaxenv stand-in: the {len(idx)}-triangle mesh did not load: {tris}")
+    big = next(p.mesh for p in cold.primitives if p.mesh is not None and len(p.mesh.indices) == len(idx))
+    for f in ("lower", "upper", "left", "right", "leaf", "count", "perm"):
+        if not np.array_equal(getattr(big.bvh, f), getattr(m.bvh, f)):
+            fail(f"ajaxenv stand-in: the loaded tree's {f} differs from the step-by-step import")
+    if not np.array_equal(load_hdr(str(hdr)), _rgbe_to_float_ref(rgbe)):
+        fail("ajaxenv stand-in: the RLE probe does not decode to the bytes written")
+    if cold.sky.probe is None or not np.array_equal(cold.sky.probe.data, probe.data):
+        fail("ajaxenv stand-in: the scene's probe is not load_probe's")
+
+    t7 = time.perf_counter()
+    flat, cam = cold.flatten(dev), CameraParams.from_host(cold.camera, dev)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter()
+    flat_warm = warm.flatten(dev)
+    if not flats_equal(flat, flat_warm):
+        fail("ajaxenv stand-in: the warm (cached) import flattens to another scene")
+    del flat_warm
+    h = next(p.mesh for p in flat.prim_static if p.mesh is not None and p.mesh.real_tris == len(idx))
+    emit(dict(phase="ajaxenv_files_setup", triangles=len(idx), nodes=h.num_nodes,
+              wide_rows=int(wide.node_rows.shape[0]), stack_slots=h.stack_slots,
+              probe=f"{PROBE_W}x{PROBE_H} rle", write_ply_s=t1 - t0, write_hdr_s=t2 - t1,
+              cold_import_steps=cold_steps, cold_load_tin_s=t4 - t3, warm_load_tin_s=t5 - t4,
+              load_probe_s=t6 - t5, flatten_s=t8 - t7, warm_flatten_equal=True))
+
+    o = cold.options
+    ops_bvh.reset_launch_counts()
+    accum, secs, passes = accumulate(cold, flat, cam, SCENE_FILE_SPP, dev)
+    launches = {k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}
+    mean = float(resolve(accum).mean())
+    if not bool(torch.isfinite(accum).all()) or not mean > 0:
+        fail(f"ajaxenv stand-in: the image is not finite or is black (mean {mean})")
+    if min(launches.values()) < 1:
+        fail(f"ajaxenv stand-in: a BVH kernel was never launched: {launches}")
+    pass_ms = secs * 1e3 / passes
+    emit(dict(phase="ajaxenv_files", scene=f"ajaxenv {o.width}x{o.height} d{o.max_depth}",
+              spp=SCENE_FILE_SPP, passes=passes, render_s=secs,
+              ms_per_spp=secs * 1e3 / SCENE_FILE_SPP, pass_ms=pass_ms, image_mean=mean,
+              launches=launches))
+    walks_in_pass(dev, {"ajaxenv": cold}, {"ajaxenv": (flat, cam)},
+                  {"ajaxenv": {"pass_ms": pass_ms}},
+                  entries=(("ajaxenv", o.max_depth, SCENE_FILE_SPP),),
+                  phase="ajaxenv_walks_in_pass")
+    del flat, accum
+    equal_draws_small(cold, 32, 32, 4, "ajaxenv stand-in 32x32 d4 1spp", dev)
+    return launches
+
+
+def _rgbe_to_float_ref(rgbe):
+    """RGBE bytes to f32: mantissa / 256 * 2^(e - 128), 0 where e = 0."""
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(np.float32(1.0), e - 136), np.float32(0.0))
+    return (rgbe[..., :3].astype(np.float32) * scale[..., None].astype(np.float32))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on an NVIDIA GPU")
@@ -1261,7 +1811,8 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    _build.build_all()
+    sources = _build.SOURCES + tuple(_build.HOST_SOURCES)  # the kernels and the BVH builder
+    _build.build_all(sources)
     build_s = time.perf_counter() - t0
     for name, (secs, log) in _build.build_log.items():
         for line in log.splitlines():
@@ -1270,7 +1821,8 @@ def main():
         for inst, regs, stack, spill_st, spill_ld in ptxas_summary(log):
             print(f"ptxas[{name}]: {inst}: {regs} registers, {stack} B stack frame, "
                   f"{spill_st} B spill stores, {spill_ld} B spill loads", flush=True)
-    emit(dict(phase="build", seconds=build_s, sources=list(_build.SOURCES)))
+    emit(dict(phase="build", seconds=build_s, sources=list(sources),
+              per_source_s={k: v[0] for k, v in _build.build_log.items()}))
 
     worst = kernel_phase(ops_nlm, plain, dev)
     equal_draw_phase(dev)
@@ -1292,9 +1844,19 @@ def main():
     walks["bvh_any"].append(k4_probe)
     integrator_equal_draw_phase(dev)
     probe_launches = probe_path(ops_nlm, ops_bvh, dev, per_scene["envmesh"])
-    # K3/K4 on the big-mesh and probe paths, K7 on the complexity view
+    trace_ops_phase(dev)
+
+    from tinsel_tpu_torch.scene.loaders import mesh_io
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        mesh_io._CACHE_DIR = str(Path(tmp) / "mesh_cache")  # cold at the first load
+        file_launches = scene_files_phase(ops_bvh, dev)
+        ajax_launches = ajaxenv_files_phase(ops_bvh, dev, Path(tmp))
+    # K3/K4 on the big-mesh, probe and scene-file paths, K7 on the
+    # complexity view
     for k in ("bvh_closest", "bvh_any"):
-        launches[k] = big_launches[k] + probe_launches[k]
+        launches[k] = (big_launches[k] + probe_launches[k] + file_launches[k]
+                       + ajax_launches[k])
     launches["bvh_steps"] = probe_launches["bvh_steps"]
 
     table = []

@@ -1,9 +1,9 @@
 """The port's BVH builder and big-mesh flatten against tinsel_tpu's,
 bit for bit.
 
-Every comparison takes the JAX package's NumPy builder (``use_native=False``
-or meshes under 4,096 triangles): its native C++ builder makes other, equally
-valid trees.
+These comparisons take the NumPy builder on both sides (``use_native=False``
+or meshes under 4,096 triangles); the native builders, which make other,
+equally valid trees, are held against each other in test_torch_native_bvh.py.
 """
 
 import numpy as np
@@ -48,11 +48,12 @@ MESHES = _meshes()
 def test_build_matches_jax(mesh, method):
     pos, idx = MESHES[mesh]
     lo, hi = tbuild.triangle_bounds(pos, idx)
-    a = tbuild.build_bvh(lo, hi, method=method)
+    a = tbuild.build_bvh(lo, hi, method=method, use_native=False)
     b = jbuild.build_bvh(lo, hi, use_native=False, method=method)
     for f in ("lower", "upper", "left", "right", "leaf", "count", "perm"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
-    wa, wb = tbuild.build_wide_bvh(a), jbuild.build_wide_bvh(b, use_native=False)
+    wa = tbuild.build_wide_bvh(a, use_native=False)
+    wb = jbuild.build_wide_bvh(b, use_native=False)
     np.testing.assert_array_equal(wa.node_rows.view(np.uint32), wb.node_rows.view(np.uint32))
     np.testing.assert_array_equal(wa.perm_padded, wb.perm_padded)
     np.testing.assert_array_equal(wa.real_mask, wb.real_mask)
@@ -88,8 +89,11 @@ def _big_scene(model, presets, proc):
     return sc
 
 
-@pytest.mark.parametrize("kind", ["cornell+meshes", "instances", "many_mesh", "envmesh"])
+@pytest.mark.parametrize("kind", ["cornell+meshes", "instances", "many_mesh", "envmesh",
+                                  "envmesh_native"])
 def test_big_mesh_flatten_matches_jax(kind):
+    """envmesh_native: 8,192 triangles, so both packages build with their
+    native builders."""
     from tinsel_tpu.scene import procedural as jproc
 
     if kind == "cornell+meshes":
@@ -100,6 +104,7 @@ def test_big_mesh_flatten_matches_jax(kind):
             "instances": ("instances_scene", (8, 8, 2)),
             "many_mesh": ("many_mesh_scene", (14, 8, 8, 2)),
             "envmesh": ("envmesh_scene", (8, 8, 2, 20)),
+            "envmesh_native": ("envmesh_scene", (8, 8, 2, 64)),
         }[kind]
         jf = getattr(jpresets, name)(*args).flatten()
         tf = getattr(tpresets, name)(*args).flatten(device="cpu")
@@ -129,10 +134,12 @@ def test_flatten_refuses_a_stack_deeper_than_128(monkeypatch):
         sc.flatten(device="cpu")
 
 
-def test_envmesh_probe_names_its_slice():
+def test_envmesh_probe_names_its_slice(tmp_path):
     """envmesh_scene(probe=True) is ported (slice 4): the JAX package's
-    scene, its test probe bit for bit. Loading a probe from a file needs
-    the HDR readers, which are slice 5, and says so."""
+    scene, its test probe bit for bit. Loading a probe from a file (the HDR
+    readers, ported with the scene loaders) gives the JAX package's probe."""
+    from tinsel_tpu.scene.probe_io import load_probe as jload_probe
+    from tinsel_tpu_torch.io.hdr import save_pfm
     from tinsel_tpu_torch.scene.probe_io import load_probe
 
     j = jpresets.envmesh_scene(8, 8, 1, detail=4, probe=True)
@@ -140,5 +147,9 @@ def test_envmesh_probe_names_its_slice():
     for k in ("data", "pdf_x", "cdf_x", "pdf_y", "cdf_y"):
         np.testing.assert_array_equal(getattr(t.sky.probe, k), getattr(j.sky.probe, k))
     np.testing.assert_array_equal(t.primitives[0].mesh.positions, j.primitives[0].mesh.positions)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        load_probe("probe.pfm")
+    path = str(tmp_path / "probe.pfm")
+    save_pfm(path, t.sky.probe.data)
+    a, b = jload_probe(path), load_probe(path)
+    for k in ("data", "pdf_x", "cdf_x", "pdf_y", "cdf_y"):
+        np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
+    np.testing.assert_array_equal(b.data, t.sky.probe.data)

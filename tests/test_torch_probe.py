@@ -8,7 +8,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from tinsel_tpu.render import probe as jprobe
@@ -62,16 +61,23 @@ def _dirs(n, seed):
     return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
 
 
-def test_probe_tables_and_test_probe_equal_jax():
-    """build_cdf (f64, stored f32) and create_test_probe bit for bit."""
+def test_probe_tables_and_test_probe_equal_jax(tmp_path):
+    """build_cdf (f64, stored f32), create_test_probe and load_probe on a
+    written .hdr, bit for bit."""
+    from tinsel_tpu.io.hdr import save_hdr
+    from tinsel_tpu.scene.probe_io import load_probe as jload_probe
+
     jp, tp, _, _ = _flat_probes(_random_probe())
     for k in PROBE_FIELDS:
         np.testing.assert_array_equal(getattr(tp, k), getattr(jp, k))
     jt, tt = jcreate_test_probe(128, 64), create_test_probe(128, 64)
     for k in PROBE_FIELDS:
         np.testing.assert_array_equal(getattr(tt, k), getattr(jt, k))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        load_probe("sky.hdr")
+    path = str(tmp_path / "sky.hdr")
+    save_hdr(path, _random_probe())
+    jl, tl = jload_probe(path), load_probe(path)
+    for k in PROBE_FIELDS:
+        np.testing.assert_array_equal(getattr(tl, k), getattr(jl, k))
 
 
 def _texel_edge_distance(uv, h, w):

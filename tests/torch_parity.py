@@ -4,6 +4,7 @@ a JAX-backed UniformSource and numpy views of the JAX package's state."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -90,3 +91,79 @@ def assert_pass_matches(a, b):
     assert close.mean() >= 0.995, close.mean()
     rel = abs(b[..., :3].mean() - a[..., :3].mean()) / a[..., :3].mean()
     assert rel < 1e-3, rel
+
+
+def loaded_pass_pair(jscene, tscene, key, size=32, max_depth=4, moved_camera=False):
+    """One 1-spp pass of a scene each package loaded itself, at size x size
+    and depth min(the file's maxDepth, max_depth), with the file's own
+    filter, clamp and roulette: (JAX pass, port pass at equal draws), and
+    with ``moved_camera`` a third, the JAX pass from a camera one ulp
+    away (its position's components stepped to the next float up)."""
+    from tinsel_tpu.render.camera import CameraParams as JCam
+    from tinsel_tpu.render.renderer import render_pass as jrender_pass
+    from tinsel_tpu_torch.render import renderer as trenderer
+    from tinsel_tpu_torch.render.camera import CameraParams as TCam
+
+    o = jscene.options
+    kw = dict(width=size, height=size, max_depth=min(o.max_depth, max_depth), clamp=o.clamp,
+              filter_type=o.filter_type, filter_width=o.filter_width,
+              filter_falloff=o.filter_falloff, rr_depth=o.rr_depth)
+    jflat, jcam = jscene.flatten(), JCam.from_host(jscene.camera)
+    jpass = jax.jit(lambda s, c, k: jrender_pass(s, c, k, **kw))
+    a = np.array(jpass(jflat, jcam, key))
+    b = trenderer.render_pass(tscene.flatten(device="cpu"),
+                              TCam.from_host(tscene.camera, device="cpu"),
+                              JaxUniforms(key), **kw).numpy()
+    if not moved_camera:
+        return a, b
+    pos = np.nextafter(np.asarray(jcam.position), np.float32(np.inf))
+    moved = dataclasses.replace(jcam, position=jax.numpy.asarray(pos))
+    return a, b, np.array(jpass(jflat, moved, key))
+
+
+SCENES_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+
+
+def check_scene_file(name, tmp_path, monkeypatch, seed, max_depth=4, ill_conditioned=False):
+    """(b) on a scene file: each package loads ``scenes/<name>.tin`` (or
+    ``scenes/<name>`` for a Tungsten ``.json``) with its own loader, each
+    mesh cache in its own directory under tmp_path; one pass at equal
+    draws must match (``assert_pass_matches``).
+
+    ``ill_conditioned``: a scene whose JAX render itself moves on more than
+    0.5% of its pixels when the camera moves by one ulp (veach_mis.json:
+    near-mirror plates lit by tiny, bright spheres). Its share of agreeing
+    pixels must reach that of the two JAX passes less 0.005, not 0.995;
+    the means are held to 1e-3 as everywhere."""
+    from tinsel_tpu.scene.loaders import mesh_io as jmesh_io
+    from tinsel_tpu.scene.loaders.tin import load_tin as jload_tin
+    from tinsel_tpu.scene.loaders.tungsten import load_tungsten as jload_tungsten
+    from tinsel_tpu_torch.scene.loaders import mesh_io as tmesh_io
+    from tinsel_tpu_torch.scene.loaders.tin import load_tin as tload_tin
+    from tinsel_tpu_torch.scene.loaders.tungsten import load_tungsten as tload_tungsten
+
+    monkeypatch.setattr(jmesh_io, "_CACHE_DIR", str(tmp_path / "jax_cache"))
+    monkeypatch.setattr(tmesh_io, "_CACHE_DIR", str(tmp_path / "torch_cache"))
+    if name.endswith(".json"):
+        path = os.path.join(SCENES_DIR, name)
+        js, ts = jload_tungsten(path), tload_tungsten(path)
+    else:
+        path = os.path.join(SCENES_DIR, name + ".tin")
+        js, ts = jload_tin(path), tload_tin(path)
+    key = jax.random.key(seed)
+    if not ill_conditioned:
+        a, b = loaded_pass_pair(js, ts, key, max_depth=max_depth)
+        assert_pass_matches(a, b)
+        assert a[..., :3].mean() > 1e-3
+        return
+    a, b, a_moved = loaded_pass_pair(js, ts, key, max_depth=max_depth, moved_camera=True)
+    self_share = pixels_close(a_moved, a).mean()
+    share = pixels_close(b, a).mean()
+    assert self_share < 0.995  # else the usual limit applies
+    assert share >= self_share - 0.005, (share, self_share)
+    rel = abs(b[..., :3].mean() - a[..., :3].mean()) / a[..., :3].mean()
+    assert rel < 1e-3, rel
+
+
+def pixels_close(b, a):
+    return np.isclose(b, a, atol=1e-4, rtol=1e-3).all(axis=-1)

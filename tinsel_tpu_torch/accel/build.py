@@ -1,13 +1,18 @@
-"""Host-side BVH builder (NumPy): the port's own copy of the NumPy parts
-of ``tinsel_tpu/accel/build.py``.
+"""Host-side BVH builder: the port's own copy of
+``tinsel_tpu/accel/build.py``.
 
 ``build_bvh`` builds a binary ranged-leaf tree by a full SAH sweep (or a
 median / midpoint split); ``build_wide_bvh`` collapses it into the 16-ary
 traversal layout the BVH-walk kernels read: one (72,) f32 row per internal
 node, child boxes bf16-packed component-major, and 16-triangle leaf blocks
-owned by their parent row. The JAX package's native C++ builder and its
-fan-out / block-size switches are not ported: every tree here is the one
-``tinsel_tpu`` builds with ``use_native=False``.
+owned by their parent row. Both hand big inputs to the native C++ builder
+(``native/bvh_builder.cpp``, built with g++ at first use) exactly where the
+JAX package does, so every tree equals the one ``tinsel_tpu`` builds:
+``build_bvh`` for SAH over 4,096 items or more, ``build_wide_bvh`` for
+k in (4, 8, 16) over 4,096 binary nodes or more whose root is internal.
+Unlike the JAX package, a failed native build or call raises instead of
+falling back; ``use_native=False`` asks for the NumPy builder. The JAX
+package's fan-out / block-size switches are not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import sys
 import numpy as np
 
 DEFAULT_LEAF_SIZE = 16  # items per binary leaf: one leaf fills one block
+NATIVE_MIN_ITEMS = 4096  # build_bvh: SAH builds from here on are native
+NATIVE_MIN_NODES = 4096  # build_wide_bvh: collapses from here on are native
 BLOCK_SIZE = 16  # triangles per leaf block
 WIDE_K = 16  # node fan-out
 _NAN_PACKED = np.uint32(0x7FC07FC0)  # bf16 quiet NaN in both halves
@@ -49,10 +56,12 @@ def _surface_area(lower, upper):
 
 def build_bvh(lowers: np.ndarray, uppers: np.ndarray,
               max_items_per_leaf: int = DEFAULT_LEAF_SIZE,
-              method: str = "sah") -> BVH:
+              method: str = "sah", use_native: bool = True) -> BVH:
     """BVH over item AABBs (n, 3). ``method``: "sah" (full sweep along the
     longest axis), "median" (split at the item median) or "midpoint"
-    (split at the spatial midpoint, median when that degenerates)."""
+    (split at the spatial midpoint, median when that degenerates). SAH
+    over ``NATIVE_MIN_ITEMS`` or more items runs the native builder unless
+    ``use_native=False``."""
     lowers = np.asarray(lowers, np.float32).reshape(-1, 3)
     uppers = np.asarray(uppers, np.float32).reshape(-1, 3)
     n = lowers.shape[0]
@@ -60,6 +69,10 @@ def build_bvh(lowers: np.ndarray, uppers: np.ndarray,
         raise ValueError("cannot build BVH over zero items")
     if method not in ("sah", "median", "midpoint"):
         raise ValueError(f"unknown BVH build method: {method}")
+    if use_native and method == "sah" and n >= NATIVE_MIN_ITEMS:
+        from ..native.bvh_native import build_bvh_native
+
+        return build_bvh_native(lowers, uppers, leaf_size=max_items_per_leaf)
 
     centers = 0.5 * (lowers + uppers)
     max_nodes = 2 * n
@@ -202,11 +215,18 @@ def _nan_box():
     return np.full(3, _NAN_PACKED, np.uint32).view(np.float32)
 
 
-def build_wide_bvh(bvh: BVH, k: int = WIDE_K) -> WideBVH:
+def build_wide_bvh(bvh: BVH, k: int = WIDE_K, use_native: bool = True) -> WideBVH:
     """Collapse a binary ranged-leaf BVH into the k-ary traversal layout.
     Each internal node adopts the frontier of its binary descendants,
     expanding the largest-volume internal child first, until k entries;
-    leaves become padded 16-triangle blocks owned by their parent row."""
+    leaves become padded 16-triangle blocks owned by their parent row.
+    Trees of ``NATIVE_MIN_NODES`` or more nodes take the native collapse
+    (bit-identical) unless ``use_native=False``."""
+    if (use_native and k in (4, 8, 16) and bvh.num_nodes >= NATIVE_MIN_NODES
+            and bvh.count[0] == 0):
+        from ..native.bvh_native import collapse_wide_native
+
+        return collapse_wide_native(bvh, k=k, block_size=BLOCK_SIZE)
     row_w, word_col, skip_col = _node_layout(k)
     count, left, right = bvh.count, bvh.left, bvh.right
     lower, upper = bvh.lower, bvh.upper

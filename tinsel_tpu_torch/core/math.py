@@ -3,7 +3,8 @@ component axes: vectors ``(..., 3)``, quaternions ``(..., 4)`` as
 (x, y, z, w), transforms ``p (..., 3) / q (..., 4) / s (...)``.
 
 Port of ``tinsel_tpu/core/math.py`` (same formulas, same operation order)
-for what the Cornell forward path uses.
+for what the render path and the scene loaders use. The loaders call the
+quaternion and 4x4 helpers on CPU f32 tensors and keep the result as numpy.
 """
 
 from __future__ import annotations
@@ -83,6 +84,20 @@ def quat_conjugate(q):
     return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
 
 
+def quat_mul(a, b):
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
 def quat_rotate(q, v):
     """Rotate vector(s) v by quaternion(s) q (q * v * q^-1), cross-form."""
     u = q[..., :3]
@@ -95,6 +110,41 @@ def quat_normalize(q):
     return q / torch.sqrt(
         torch.clamp(torch.sum(q * q, dim=-1, keepdim=True), min=1e-30)
     )
+
+
+def quat_from_axis_angle(axis, angle):
+    axis = normalize(torch.as_tensor(axis, dtype=torch.float32))
+    half = 0.5 * torch.as_tensor(angle, dtype=torch.float32)
+    s = torch.sin(half)
+    return torch.cat([axis * s[..., None], torch.cos(half)[..., None]], dim=-1)
+
+
+def quat_from_matrix3(m):
+    """Quaternion from a 3x3 rotation matrix (..., 3, 3), rows first
+    (m[i, j] = row i, column j): the four candidate constructions, the one
+    with the largest pivot kept (the first on a tie), normalized."""
+    m = torch.as_tensor(m, dtype=torch.float32)
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tw = 1.0 + m00 + m11 + m22
+    tx = 1.0 + m00 - m11 - m22
+    ty = 1.0 - m00 + m11 - m22
+    tz = 1.0 - m00 - m11 + m22
+
+    def half_rsqrt(t):
+        return 0.5 * torch.rsqrt(torch.clamp(t, min=1e-12))
+
+    sw, sx, sy, sz = (half_rsqrt(t) for t in (tw, tx, ty, tz))
+    cands = torch.stack([
+        torch.stack([(m21 - m12) * sw, (m02 - m20) * sw, (m10 - m01) * sw, tw * sw], -1),
+        torch.stack([tx * sx, (m01 + m10) * sx, (m02 + m20) * sx, (m21 - m12) * sx], -1),
+        torch.stack([(m01 + m10) * sy, ty * sy, (m12 + m21) * sy, (m02 - m20) * sy], -1),
+        torch.stack([(m02 + m20) * sz, (m12 + m21) * sz, tz * sz, (m10 - m01) * sz], -1),
+    ], -2)  # (..., 4 candidates, 4)
+    best = torch.argmax(torch.stack([tw, tx, ty, tz], -1), dim=-1)
+    q = torch.take_along_dim(cands, best[..., None, None].expand(*best.shape, 1, 4), dim=-2)
+    return quat_normalize(q[..., 0, :])
 
 
 def quat_nlerp(a, b, t):
@@ -153,3 +203,30 @@ def basis_from_vector(w):
     u = torch.where(use_x[..., None], ua, ub)
     v = cross(w, u)
     return u, v
+
+
+# ------------------------------------------------- 4x4 matrices (host side)
+
+
+def mat44_affine_inverse(m):
+    """Inverse of an orthonormal affine matrix (rotation + translation)."""
+    m = torch.as_tensor(m, dtype=torch.float32)
+    rt = m[:3, :3].T
+    out = torch.eye(4, dtype=torch.float32)
+    out[:3, :3] = rt
+    out[:3, 3] = -rt @ m[:3, 3]
+    return out
+
+
+def look_at_matrix(eye, target, up=(0.0, 1.0, 0.0)):
+    """World-to-camera matrix, OpenGL convention (camera looks down -z)."""
+    eye, target, up = (torch.as_tensor(x, dtype=torch.float32) for x in (eye, target, up))
+    forward = -normalize(target - eye)  # camera z axis
+    left = -normalize(cross(forward, up))  # camera x axis
+    upv = -cross(left, forward)  # camera y axis
+    cam_to_world = torch.eye(4, dtype=torch.float32)
+    cam_to_world[:3, 0] = left
+    cam_to_world[:3, 1] = upv
+    cam_to_world[:3, 2] = forward
+    cam_to_world[:3, 3] = eye
+    return mat44_affine_inverse(cam_to_world)

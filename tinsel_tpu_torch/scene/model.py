@@ -4,7 +4,8 @@ The port's own copy of ``tinsel_tpu/scene/model.py`` (``Scene.flatten`` at
 ``:434-675``) for spheres, planes and triangle meshes of any size. Every
 mesh is built into the 16-ary traversal layout (``accel/build.py``): node
 rows, 16-triangle leaf blocks and the triangles in block-padded order,
-exactly as the JAX package lays them out with its NumPy builder. Meshes
+exactly as the JAX package lays them out (the native C++ builder for
+meshes of 4,096 triangles or more, the NumPy one below that). Meshes
 that fit one block keep the brute sweep at trace time. An HDR probe
 (``HostProbe``) becomes a ``ProbeFlat`` of tensors with its f64-built CDF,
 and ``SceneFlat.light_pmf`` holds the power-proportional light pmf of
@@ -14,6 +15,7 @@ and ``SceneFlat.light_pmf`` holds the power-proportional light pmf of
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import field
 from typing import List, Optional
 
@@ -94,6 +96,9 @@ class HostTransform:
     q: np.ndarray = field(default_factory=lambda: np.array([0, 0, 0, 1], np.float32))
     s: float = 1.0
 
+    def copy(self) -> "HostTransform":
+        return HostTransform(self.p.copy(), self.q.copy(), float(self.s))
+
 
 @dataclasses.dataclass
 class Mesh:
@@ -141,6 +146,33 @@ class Mesh:
             self.calculate_normals()
         self.rebuild_cdf()
         self.rebuild_bvh()
+
+    def normalize(self, size: float = 1.0):
+        """Translate to the origin and scale the longest edge to ``size``."""
+        lo = self.positions.min(axis=0)
+        hi = self.positions.max(axis=0)
+        self.positions = (self.positions - lo).astype(np.float32)
+        max_edge = float((hi - lo).max())
+        if max_edge > 0:
+            self.positions *= np.float32(size / max_edge)
+
+    def transform(self, matrix: np.ndarray):
+        """Apply a 4x4 affine to positions (and rotate normals)."""
+        p = self.positions @ matrix[:3, :3].T + matrix[:3, 3]
+        self.positions = p.astype(np.float32)
+        if self.normals is not None:
+            n = self.normals @ np.linalg.inv(matrix[:3, :3])
+            norm = np.linalg.norm(n, axis=-1, keepdims=True)
+            self.normals = (n / np.maximum(norm, 1e-20)).astype(np.float32)
+
+    def add_mesh(self, other: "Mesh"):
+        offset = len(self.positions)
+        self.positions = np.concatenate([self.positions, other.positions]).astype(np.float32)
+        if self.normals is not None and other.normals is not None:
+            self.normals = np.concatenate([self.normals, other.normals]).astype(np.float32)
+        else:
+            self.normals = None
+        self.indices = np.concatenate([self.indices, other.indices + offset]).astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -236,6 +268,39 @@ class Options:
 # --------------------------------------------------------------------- device
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[i]`` for each of several (M, ...) tables: ``index_select``
+    forward (exact); backward ``onehot(i)^T @ grad`` for all tables in one
+    (M, N) x (N, F) matmul, F the tables' summed row widths. Exact in f32
+    up to the order of the sum: every one-hot entry is 0 or 1."""
+
+    @staticmethod
+    def forward(ctx, i, *tables):
+        ctx.set_materialize_grads(False)
+        flat = i.reshape(-1)
+        ctx.save_for_backward(flat)
+        ctx.shapes = [t.shape for t in tables]
+        return tuple(
+            t.index_select(0, flat).reshape(*i.shape, *t.shape[1:]) for t in tables
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (flat,) = ctx.saved_tensors
+        live = [k for k, g in enumerate(grads)
+                if g is not None and ctx.needs_input_grad[k + 1]]
+        out = [None] * len(grads)
+        if live:
+            n, m = flat.shape[0], ctx.shapes[0][0]
+            g = torch.cat([grads[k].reshape(n, -1) for k in live], dim=1)
+            onehot = flat[None, :] == torch.arange(m, device=flat.device)[:, None]
+            sums = onehot.to(g.dtype) @ g  # (M, F)
+            widths = [math.prod(ctx.shapes[k][1:]) for k in live]
+            for k, s in zip(live, torch.split(sums, widths, dim=1)):
+                out[k] = s.reshape(ctx.shapes[k])
+        return (None, *out)
+
+
 @dataclasses.dataclass(frozen=True)
 class MaterialsFlat:
     emission: torch.Tensor  # (M, 3)
@@ -252,12 +317,14 @@ class MaterialsFlat:
     transmission: torch.Tensor
 
     def select(self, i):
-        """Per-lane material record for index tensor i (an exact gather;
-        the JAX package uses an exact one-hot matmul)."""
-        i = i.long()
-        return MaterialsFlat(
-            **{f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)}
-        )
+        """Per-lane material record for index tensor i: an exact gather
+        whose backward sums each lane's gradient into its row by a one-hot
+        matmul, as the JAX package's ``select_oh`` does (advanced indexing
+        would take the accumulating ``index_put``, which serializes on the
+        few material rows every lane lands on)."""
+        names = [f.name for f in dataclasses.fields(self)]
+        rows = _GatherRows.apply(i.long(), *(getattr(self, k) for k in names))
+        return MaterialsFlat(**dict(zip(names, rows)))
 
     @classmethod
     def from_host(cls, mats: list, device) -> "MaterialsFlat":

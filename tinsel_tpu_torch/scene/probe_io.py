@@ -1,18 +1,33 @@
-"""HDR probes for scenes (port of ``tinsel_tpu/scene/probe_io.py``): the
-procedural test probe. Loading a probe from a file needs the HDR readers
-(``io/hdr.py``), which are ported with the loaders in slice 5."""
+"""HDR probes for scenes (port of ``tinsel_tpu/scene/probe_io.py``):
+``load_probe`` reads a Radiance ``.hdr``/``.pic`` or a ``.pfm`` lat-long map
+(``io/hdr.py``) and builds its luminance CDF; ``create_test_probe`` is the
+procedural disc-light probe."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
+from ..io.hdr import load_hdr, load_pfm
 from .model import HostProbe
 
 
 def load_probe(path: str) -> HostProbe:
-    raise NotImplementedError(
-        f"load_probe({path!r}): the HDR/PFM readers (io/hdr.py) are ported in slice 5"
+    t0 = time.perf_counter()
+    if path.lower().endswith((".hdr", ".pic")):
+        data = load_hdr(path)
+    elif path.lower().endswith(".pfm"):
+        data = load_pfm(path)
+    else:
+        raise ValueError(f"unsupported probe format: {path}")
+    probe = HostProbe(data=np.asarray(data, np.float32))
+    probe.build_cdf()
+    print(
+        f"Imported probe {path} ({probe.width}x{probe.height}) "
+        f"in {(time.perf_counter() - t0) * 1000:.1f}ms"
     )
+    return probe
 
 
 def create_test_probe(width: int = 100, height: int = 50) -> HostProbe:
