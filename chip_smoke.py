@@ -67,7 +67,28 @@ Phases, each fatal on failure (exit code 1):
     cache write), warm import from the cache (flattened scenes equal),
     ``load_probe``, flatten; the 500x500 render at maxDepth 64, 4 spp,
     with K3/K4 counts reset just before and read just after; one profiled
-    pass; the card against the CPU at equal draws at 32x32.
+    pass; the card against the CPU at equal draws at 32x32;
+13. the entry points, each run with the kernels' launch counts reset just
+    before and read just after, timed up to a device sync: the CLI in
+    process (``app.cli``) on ``scenes/cornell.tin`` at its own 256x256,
+    depth 4, 64 spp with ``-denoise -aov`` (K1 and no K2; the PNG read
+    back; each AOV PFM equal to ``render_aovs``; the CLI's own ms/spp
+    beside a library ``render`` of the same scene, loaded beforehand, and
+    spp), then ``-denoise-guided`` (K2); resume: 32 spp with a checkpoint
+    every 16 against 16 spp then ``-resume`` to 32 (the buffers bit for
+    bit, no guard event); ``scenes/veach_mis.json`` at 1280x720, depth 6,
+    4 spp (K3, K4; a checkpoint write of its buffer timed apart) and its
+    ``-mode complexity`` (K7); phase 12's ajaxenv stand-in at 500x500,
+    maxDepth 64, 4 spp with ``-denoise-guided`` (K3, K4, K2). Each run's
+    K1 and K2 outputs are held against the plain filters on the run's own
+    inputs within KERNEL_TOL, and the AOVs it gave K2 against
+    ``render_aovs``; K7's steps against the plain count on the run's own
+    rays, lane by lane. Then the chunk guard on the card (a NaN on the
+    first attempt of pass 1: one rollback, a finite, reseeded buffer);
+    ``python -m tinsel_tpu_torch`` in a subprocess; the HTTP viewer on a
+    512x512 Cornell box in a thread (page, frame, status; denoise off,
+    "nlm" (K1) and "guided" (K2), each with its ms per spp and frames per
+    second; a fly-camera move restarts the accumulation).
 
 The 524k sphere's tree (phase 6) comes from the native builder.
 
@@ -78,15 +99,21 @@ beside this file, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +161,10 @@ SCENE_FILE_SPP = 4
 EXTERNAL_ASSET_SCENES = ("ajax", "ajaxenv", "sportscar", "table")
 AJAXENV_DETAIL = 366  # 2 * 366^2 = 267,912 triangles: the scan has 268k
 PROBE_W, PROBE_H = 1024, 512
+ENTRY_SPP = 64  # phase 13: the CLI on scenes/cornell.tin
+VIEWER_W = VIEWER_H = 512
+VIEWER_WINDOW_S = 2.0  # each denoise setting of the viewer is measured this long
+VIEWER_DEADLINE_S = 60.0
 
 
 def fail(msg: str):
@@ -702,7 +733,7 @@ def bvh_inputs(dev):
     batches (captured from a 512x512 pass: the shortlist rounds' lanes
     with per-lane offsets; the NEE shadow rays). {tag: {"closest": args,
     "any": args}}, args as the wrappers take them."""
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.ops import bvh as ops_bvh
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
@@ -714,7 +745,7 @@ def bvh_inputs(dev):
         flat = sc.flatten(dev)
         cam = CameraParams.from_host(sc.camera, dev)
         with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
-            make_render_pass(sc.options)(flat, cam, GeneratorUniforms(9, dev))
+            make_render_pass(sc.options)(flat, cam, PathUniforms(9, dev))
         closest, anyh = cap.calls["closest_hit"], cap.calls["any_hit"]
         if name == "envmesh":  # bounce 1: the first diffuse bounce
             inputs[name] = {"closest": closest[1]}
@@ -791,7 +822,7 @@ def bigmesh_path(ops_bvh, dev):
     the profiler: the walk kernels' device time inside it, beside the
     pass's device busy time and its ms in the timed run."""
     from tinsel_tpu_torch.core.color import resolve
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn
 
@@ -810,7 +841,7 @@ def bigmesh_path(ops_bvh, dev):
         before = dict(ops_bvh.launch_counts)
         spp_pass = spp_per_pass(spp)
         step = make_accumulate_fn(scenes[name].options, spp_pass)
-        source = GeneratorUniforms(0, dev)
+        source = PathUniforms(0, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
@@ -855,7 +886,7 @@ def walks_in_pass(dev, scenes, flats, per_scene, entries=BIG_SCENES, phase="bigm
     of the card's kernels, and the pass's device idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn
 
     rec = {}
@@ -867,7 +898,7 @@ def walks_in_pass(dev, scenes, flats, per_scene, entries=BIG_SCENES, phase="bigm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(accum, flat, cam, GeneratorUniforms(4, dev), 0)
+            step(accum, flat, cam, PathUniforms(4, dev), 0)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = device_events(prof)
@@ -964,7 +995,7 @@ def gradient_phase(ops_bvh, dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.diff.gradients import render_loss, render_loss_and_grads
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.scene import model
@@ -978,7 +1009,7 @@ def gradient_phase(ops_bvh, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops_bvh.reset_launch_counts()
-        loss, grads = render_loss_and_grads(flat, cam, GeneratorUniforms(1, dev), target, **opts)
+        loss, grads = render_loss_and_grads(flat, cam, PathUniforms(1, dev), target, **opts)
         torch.cuda.synchronize()
         launches = dict(ops_bvh.launch_counts)
         peak = torch.cuda.max_memory_allocated()
@@ -993,11 +1024,11 @@ def gradient_phase(ops_bvh, dev):
             fail(f"gradient step on envmesh did not launch K3: {launches}")
 
         def fwd_bwd(i):
-            render_loss_and_grads(flat, cam, GeneratorUniforms(i, dev), target, **opts)
+            render_loss_and_grads(flat, cam, PathUniforms(i, dev), target, **opts)
 
         def fwd(i):
             with torch.no_grad():
-                render_loss(flat, cam, GeneratorUniforms(i, dev), target, **opts)
+                render_loss(flat, cam, PathUniforms(i, dev), target, **opts)
 
         def backward_profile():
             """The backward alone under the profiler."""
@@ -1008,7 +1039,7 @@ def gradient_phase(ops_bvh, dev):
                 f.name: getattr(cam, f.name).clone().requires_grad_(True)
                 for f in dataclasses.fields(cam)})
             ls = render_loss(dataclasses.replace(flat, materials=mats), cam_l,
-                             GeneratorUniforms(5, dev), target, **opts)
+                             PathUniforms(5, dev), target, **opts)
             ins = [getattr(o, f.name) for o in (mats, cam_l) for f in dataclasses.fields(o)]
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1138,7 +1169,7 @@ def steps_kernel_phase(dev, walk_inputs):
     the 524k sphere's rays; K4 on envmesh's probe shadow rays (captured
     from a pass of the probe scene). Returns (K7 records, K4 record)."""
     from tinsel_tpu_torch.accel import traverse as plain
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.ops import bvh as ops_bvh
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
@@ -1147,11 +1178,11 @@ def steps_kernel_phase(dev, walk_inputs):
     flat = sc.flatten(dev)
     cam = CameraParams.from_host(sc.camera, dev)
     with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
-        make_render_pass(sc.options)(flat, cam, GeneratorUniforms(9, dev))
+        make_render_pass(sc.options)(flat, cam, PathUniforms(9, dev))
     probe_shadow = cap.calls["any_hit"][0]  # bounce 0's probe shadow rays
     cx = dataclasses.replace(sc.options, mode="complexity")
     with torch.no_grad(), CaptureWalks(ops_bvh, ("traversal_steps",)) as cap:
-        make_render_pass(cx)(flat, cam, GeneratorUniforms(9, dev))
+        make_render_pass(cx)(flat, cam, PathUniforms(9, dev))
     camera = cap.calls["traversal_steps"][0]
 
     def drop_tmax(args):
@@ -1257,7 +1288,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     ``render`` (K7 reset just before); ``adaptive_render`` at a 16-spp
     budget; one profiled pass. Returns the launches."""
     from tinsel_tpu_torch.core.color import resolve
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.render.adaptive import adaptive_render
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn, render
@@ -1273,7 +1304,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     ops_nlm.reset_launch_counts()
     t1 = time.perf_counter()
     accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
-    source = GeneratorUniforms(0, dev)
+    source = PathUniforms(0, dev)
     for c in range(spp // spp_pass):
         accum = step(accum, flat, cam, source, c)
     torch.cuda.synchronize()
@@ -1334,15 +1365,19 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
 # ------------------------------------------ the trace as torch ops (K5, K6)
 
 
-def capture_calls(targets, run):
+def capture_calls(targets, run, outs=None):
     """Run ``run()`` with every (module, name) of ``targets`` wrapped to
-    record its arguments (tensors cloned): {name: [(args, kwargs), ...]}."""
+    record its arguments (tensors cloned): {name: [(args, kwargs), ...]}.
+    ``outs``: a dict that also gets each call's result, {name: [out, ...]}."""
     calls = {name: [] for _, name in targets}
     orig = {(m, name): getattr(m, name) for m, name in targets}
     for (m, name), fn in orig.items():
         def wrapped(*a, _name=name, _fn=fn, **k):
             calls[_name].append((tuple(x.clone() if torch.is_tensor(x) else x for x in a), k))
-            return _fn(*a, **k)
+            out = _fn(*a, **k)
+            if outs is not None:
+                outs.setdefault(_name, []).append(out)
+            return out
         setattr(m, name, wrapped)
     try:
         run()
@@ -1419,7 +1454,7 @@ def trace_ops_phase(dev):
     Device ms and launches from the profiler, the call's
     ms under CUDA events, and the bound of the work (``sweep_work``,
     ``rounds_work``)."""
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.render import integrator, lights, trace
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
@@ -1429,7 +1464,7 @@ def trace_ops_phase(dev):
         flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
         spp = spp_per_pass(4)
         with torch.no_grad():
-            make_render_pass(sc.options, spp)(flat, cam, GeneratorUniforms(9, dev))
+            make_render_pass(sc.options, spp)(flat, cam, PathUniforms(9, dev))
         return flat
 
     def record(what, fn, calls, work, extra=None):
@@ -1508,7 +1543,7 @@ def mesh_triangles(sc):
 def accumulate(sc, flat, cam, spp: int, dev, seed: int = 0):
     """``spp`` samples of the scene's own options in passes of about 1M
     rays, as ``render`` takes them: (accumulation buffer, seconds, passes)."""
-    from tinsel_tpu_torch.core.sampling import GeneratorUniforms
+    from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn
 
     o = sc.options
@@ -1516,7 +1551,7 @@ def accumulate(sc, flat, cam, spp: int, dev, seed: int = 0):
     if spp % spp_pass:
         fail(f"{spp} spp do not split into passes of {spp_pass}")
     step = make_accumulate_fn(o, spp_pass)
-    source = GeneratorUniforms(seed, dev)
+    source = PathUniforms(seed, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     accum = torch.zeros((o.height, o.width, 4), device=dev)
@@ -1786,6 +1821,426 @@ def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
     return launches
 
 
+# ----------------------------------------------------------- entry points
+
+KERNEL_NAMES = ("nlm_filter", "nlm_guided", "bvh_closest", "bvh_any", "bvh_steps")
+CLI_LINE = re.compile(r"(\d+) spp in ([\d.]+)s \(([\d.]+) ms/spp, ([\d.]+) Mpaths/s\)")
+
+
+def reset_counts(ops_nlm, ops_bvh):
+    ops_nlm.reset_launch_counts()
+    ops_bvh.reset_launch_counts()
+
+
+def read_counts(ops_nlm, ops_bvh) -> dict:
+    counts = {**ops_nlm.launch_counts, **ops_bvh.launch_counts}
+    return {k: counts[k] for k in KERNEL_NAMES}
+
+
+def cli_run(ops_nlm, ops_bvh, argv, guard: bool = False, capture=()):
+    """One in-process CLI run, counts reset just before and read just
+    after, stdout captured: (ChunkGuard or main's code, seconds up to a
+    device sync, launches, the CLI's timing line as numbers, the run's
+    calls of the functions in ``capture`` ((module, name) pairs, as
+    ``capture_calls``) as ({name: [(args, kwargs)]}, {name: [out]})). The
+    wrappers call through, so the launch counts are the run's own."""
+    from tinsel_tpu_torch.app import cli
+
+    def run():
+        nonlocal out
+        if guard:
+            args = cli.build_parser().parse_args(argv)
+            out = cli.render_one(cli.load_scene(args.scene), args, args.output)
+        else:
+            out = cli.main(argv)
+
+    out, outs = None, {}
+    torch.cuda.synchronize()
+    reset_counts(ops_nlm, ops_bvh)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        calls = capture_calls(capture, run, outs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(ops_nlm, ops_bvh)
+    text = buf.getvalue()
+    m = CLI_LINE.search(text)
+    if m is None:
+        fail(f"CLI {argv}: no timing line in its output:\n{text}")
+    line = dict(spp=int(m[1]), s=float(m[2]), ms_per_spp=float(m[3]), mpaths_per_s=float(m[4]))
+    if not guard and out != 0:
+        fail(f"CLI {argv} returned {out}")
+    return out, secs, launches, line, (calls, outs)
+
+
+def need(launches: dict, what: str, launched=(), absent=()):
+    if any(launches[k] < 1 for k in launched) or any(launches[k] for k in absent):
+        fail(f"{what}: kernel launches {launches}; expected {list(launched)} launched, "
+             f"{list(absent)} not")
+
+
+def png_image(path) -> np.ndarray:
+    from tinsel_tpu_torch.io.png import read_png
+
+    if not Path(path).exists():
+        fail(f"{path} was not written")
+    return read_png(str(path))
+
+
+def checkpoint_accum(path, what: str):
+    from tinsel_tpu_torch.parallel.checkpoint import load_checkpoint
+
+    a = load_checkpoint(str(path))[0]
+    if not np.isfinite(a).all():
+        fail(f"{what}: the accumulation buffer is not finite")
+    return a
+
+
+def hold_nlm(calls, outs, name, plain_fn, what) -> float:
+    """Each call of the ops/nlm.py dispatcher ``name`` in a CLI run (the
+    kernel's output) against ``plain_fn`` on the same inputs, within
+    KERNEL_TOL; returns the largest error."""
+    if not calls[name]:
+        fail(f"{what}: {name} was not called")
+    err = 0.0
+    for (a, k), out in zip(calls[name], outs[name]):
+        ref = plain_fn(*a, **k)
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            fail(f"{what}: {name} gave {tuple(out.shape)}, plain {tuple(ref.shape)}")
+        err = max(err, float((out - ref).abs().max()))
+    if not err <= KERNEL_TOL:
+        fail(f"{what}: {name} differs from the plain version by {err}")
+    return err
+
+
+def hold_aovs(calls, want: dict, what):
+    """The AOVs a CLI run gave K2 equal ``render_aovs`` on the same camera."""
+    img, normal, albedo, depth = calls["nlm_guided_denoise"][0][0][:4]
+    for name, t in (("normal", normal), ("albedo", albedo), ("depth", depth)):
+        if not torch.equal(t, want[name]):
+            fail(f"{what}: the {name} AOV given to K2 differs from render_aovs by "
+                 f"{float((t - want[name]).abs().max())}")
+
+
+def hold_steps(calls, outs, what) -> dict:
+    """K7's per-lane steps in a CLI run against the plain count
+    (``accel/traverse.py::traversal_cost``, tmax = +inf) on the same
+    rays: equal on every lane."""
+    from tinsel_tpu_torch.accel import traverse as plain_walk
+
+    if not calls["traversal_steps"]:
+        fail(f"{what}: traversal_steps was not called")
+    lanes = mismatched = 0
+    for (a, k), out in zip(calls["traversal_steps"], outs["traversal_steps"]):
+        pool, noff, toff, o, d, slots = a
+        inf = torch.full((o.shape[0],), float("inf"), device=o.device)
+        ref = plain_walk.traversal_cost(pool, noff, toff, o, d, inf, stack_slots=slots)
+        lanes += o.shape[0]
+        mismatched += int((out != ref).sum())
+    if mismatched:
+        fail(f"{what}: K7 differs from the plain count on {mismatched} of {lanes} lanes")
+    return dict(lanes=lanes, mismatched=mismatched)
+
+
+def entry_points_phase(ops_nlm, ops_bvh, dev, tmp: Path):
+    """Item 13 of the module docstring. Returns every kernel's launches
+    summed over the phase's runs and the viewer."""
+    from tinsel_tpu_torch.app import cli
+    from tinsel_tpu_torch.core import color
+    from tinsel_tpu_torch.io.hdr import load_pfm
+    from tinsel_tpu_torch.parallel.checkpoint import save_checkpoint
+    from tinsel_tpu_torch.render import nlm as plain
+    from tinsel_tpu_torch.render.aov import render_aovs
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import render
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    k1 = ((ops_nlm, "nlm_denoise"),)
+    k2 = ((ops_nlm, "nlm_guided_denoise"),)
+
+    def record(run, secs, launches, **kw):
+        for k in KERNEL_NAMES:
+            total[k] += launches[k]
+        emit(dict(phase="entry_points", run=run, seconds=secs, launches=launches, **kw))
+
+    cornell = str(ROOT / "scenes" / "cornell.tin")
+    # 1: -denoise -aov at the file's own size and depth; K1's output held
+    # against the plain filter on the run's own image
+    out = tmp / "cornell_cli.png"
+    _, secs, launches, line, (calls, outs) = cli_run(
+        ops_nlm, ops_bvh, [cornell, "-spp", str(ENTRY_SPP), "-denoise", "-aov", "-o", str(out)],
+        capture=k1)
+    need(launches, "cli -denoise", launched=("nlm_filter",), absent=("nlm_guided",))
+    k1_err = hold_nlm(calls, outs, "nlm_denoise", plain.nlm_filter, "cli -denoise")
+    img = png_image(out)
+    if img.shape != (256, 256, 3) or not img.mean() > 5:
+        fail(f"cli -denoise: the PNG is {img.shape}, mean {img.mean()}")
+    sc = cli.load_scene(cornell)
+    aov = render_aovs(sc.flatten(dev), CameraParams.from_host(sc.camera, dev), 256, 256)
+    for name, t in aov.items():
+        want = t.cpu().numpy()
+        want = np.repeat(want, 3, axis=-1) if want.shape[-1] == 1 else want
+        if not np.array_equal(load_pfm(str(tmp / f"cornell_cli_{name}.pfm")), want):
+            fail(f"cli -aov: {name}.pfm differs from render_aovs")
+    # the library on a scene already loaded: flatten and the accumulate
+    # loop (the CLI's line times its loop alone; flatten timed apart)
+    lib_sc = cli.load_scene(cornell)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib_sc.flatten(dev)
+    torch.cuda.synchronize()
+    flatten_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = render(lib_sc, spp=ENTRY_SPP, device=dev)
+    torch.cuda.synchronize()
+    lib_s = time.perf_counter() - t0
+    if not torch.isfinite(lib).all():
+        fail("library render of cornell.tin is not finite")
+    record("cli cornell.tin 256x256 d4 -denoise -aov", secs, launches, spp=ENTRY_SPP,
+           cli_line=line, png_mean=float(img.mean()), aov_pfms_equal_render_aovs=True,
+           k1_max_abs_err_vs_plain=k1_err, library_render_s=lib_s,
+           library_ms_per_spp=lib_s * 1e3 / ENTRY_SPP, library_flatten_s=flatten_s)
+
+    # 2: -denoise-guided; K2's output against the plain guided filter, its
+    # AOVs against render_aovs
+    out = tmp / "cornell_guided.png"
+    _, secs, launches, line, (calls, outs) = cli_run(
+        ops_nlm, ops_bvh, [cornell, "-spp", str(ENTRY_SPP), "-denoise-guided", "-o", str(out)],
+        capture=k2)
+    need(launches, "cli -denoise-guided", launched=("nlm_guided",), absent=("nlm_filter",))
+    k2_err = hold_nlm(calls, outs, "nlm_guided_denoise", plain.nlm_guided, "cli -denoise-guided")
+    hold_aovs(calls, aov, "cli -denoise-guided")
+    img = png_image(out)
+    record("cli cornell.tin -denoise-guided", secs, launches, spp=ENTRY_SPP, cli_line=line,
+           png_mean=float(img.mean()), k2_max_abs_err_vs_plain=k2_err, aovs_equal_render_aovs=True)
+
+    # 3: resume: A straight to 32 spp; B to 16, then resumed to 32
+    a_ck, b_ck = tmp / "resume_a.npz", tmp / "resume_b.npz"
+    runs = []
+    for spp, ck, extra in ((32, a_ck, []), (16, b_ck, []), (32, b_ck, ["-resume"])):
+        g, secs, launches, line, _ = cli_run(
+            ops_nlm, ops_bvh, [cornell, "-spp", str(spp), "-checkpoint", str(ck),
+                               "-checkpoint-every", "16", *extra, "-o", str(tmp / "resume.png")],
+            guard=True)
+        if g.events:
+            fail(f"cli resume run {spp} spp {extra}: guard events {g.events}")
+        runs.append(dict(spp=spp, resume=bool(extra), seconds=secs, cli_line=line))
+        for k in KERNEL_NAMES:
+            total[k] += launches[k]
+    a, b = checkpoint_accum(a_ck, "resume A"), checkpoint_accum(b_ck, "resume B")
+    bit_equal = bool(np.array_equal(a, b))
+    rel = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+    if not bit_equal and rel > 1e-6:
+        fail(f"cli resume: the resumed buffer differs from the uninterrupted one ({rel})")
+    emit(dict(phase="entry_points", run="cli cornell.tin resume 16 -> 32 against 32",
+              runs=runs, bit_equal=bit_equal, max_rel_diff=rel))
+
+    # 4: veach_mis.json at its own size (K3/K4), no checkpoint in the timed
+    # run: the buffer is the one the CLI resolves; a checkpoint write of it
+    # timed apart. Then its complexity view (K7), K7's steps held against
+    # the plain count on the run's own rays
+    veach = str(ROOT / "scenes" / "veach_mis.json")
+    _, secs, launches, line, (calls, _) = cli_run(
+        ops_nlm, ops_bvh, [veach, "-spp", "4", "-o", str(tmp / "veach.png")],
+        capture=((color, "resolve"),))
+    need(launches, "cli veach_mis.json", launched=("bvh_closest", "bvh_any"))
+    acc = calls["resolve"][0][0][0]
+    if tuple(acc.shape) != (720, 1280, 4) or not torch.isfinite(acc).all():
+        fail(f"cli veach_mis.json: the buffer is {tuple(acc.shape)} or not finite")
+    ck_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        save_checkpoint(str(tmp / "veach.npz"), acc, 4, 0)
+        ck_s.append(time.perf_counter() - t0)
+    record("cli veach_mis.json 1280x720 d6", secs, launches, spp=4, cli_line=line,
+           image_mean=float(acc[..., :3].mean() / max(float(acc[..., 3].mean()), 1e-12)),
+           checkpoint_write_s=ck_s)
+    _, secs, launches, line, (calls, outs) = cli_run(
+        ops_nlm, ops_bvh, [veach, "-mode", "complexity", "-checkpoint",
+                           str(tmp / "veach_cx.npz"), "-checkpoint-every", "1",
+                           "-o", str(tmp / "veach_cx.png")],
+        capture=((ops_bvh, "traversal_steps"),))
+    need(launches, "cli veach_mis.json -mode complexity", launched=("bvh_steps",))
+    steps = hold_steps(calls, outs, "cli veach_mis.json -mode complexity")
+    acc = checkpoint_accum(tmp / "veach_cx.npz", "cli -mode complexity")
+    record("cli veach_mis.json -mode complexity", secs, launches, spp=1, cli_line=line,
+           image_mean=float(acc[..., :3].mean()), k7_vs_plain=steps)
+
+    # 5: the ajaxenv stand-in of phase 12 at real size, guided denoise;
+    # K2 at 500x500 against the plain guided filter, its AOVs against
+    # render_aovs
+    _, secs, launches, line, (calls, outs) = cli_run(
+        ops_nlm, ops_bvh, [str(tmp / "ajaxenv.tin"), "-spp", "4", "-denoise-guided",
+                           "-checkpoint", str(tmp / "ajaxenv.npz"), "-checkpoint-every", "4",
+                           "-o", str(tmp / "ajaxenv.png")],
+        capture=k2)
+    need(launches, "cli ajaxenv stand-in", launched=("bvh_closest", "bvh_any", "nlm_guided"))
+    k2_err = hold_nlm(calls, outs, "nlm_guided_denoise", plain.nlm_guided, "cli ajaxenv stand-in")
+    sc = cli.load_scene(str(tmp / "ajaxenv.tin"))
+    hold_aovs(calls, render_aovs(sc.flatten(dev), CameraParams.from_host(sc.camera, dev),
+                                 500, 500), "cli ajaxenv stand-in")
+    checkpoint_accum(tmp / "ajaxenv.npz", "cli ajaxenv stand-in")
+    img = png_image(tmp / "ajaxenv.png")
+    if img.shape != (500, 500, 3) or not img.mean() > 1:
+        fail(f"cli ajaxenv stand-in: the PNG is {img.shape}, mean {img.mean()}")
+    record("cli ajaxenv stand-in 500x500 d64 -denoise-guided", secs, launches, spp=4,
+           cli_line=line, png_mean=float(img.mean()), k2_max_abs_err_vs_plain=k2_err,
+           aovs_equal_render_aovs=True)
+
+    guard_on_card(dev, cornell)
+    subprocess_run(tmp, cornell)
+    viewer_launches = viewer_phase(ops_nlm, ops_bvh, dev)
+    for k in KERNEL_NAMES:
+        total[k] += viewer_launches[k]
+    emit(dict(phase="entry_points_launches", launches=total))
+    return total
+
+
+def guard_on_card(dev, cornell: str):
+    """The accumulate step of cornell.tin returns NaN on the first attempt
+    of pass 1: the guard rolls back, reseeds and logs one event."""
+    from tinsel_tpu_torch.app import cli
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.parallel.failure import ChunkGuard
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_accumulate_fn
+
+    sc = cli.load_scene(cornell)
+    flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+    step = make_accumulate_fn(sc.options, 16)
+    seen = []
+
+    def poisoned(accum, scene, cam, source, pass_idx):
+        out = step(accum, scene, cam, source, pass_idx)
+        seen.append(pass_idx)
+        return out * float("nan") if seen == [0, 1] else out
+
+    src = PathUniforms(0, dev)
+    guard = ChunkGuard(retries=2, backoff_s=0.0)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    accum = torch.zeros((256, 256, 4), device=dev)
+    plain = torch.zeros_like(accum)
+    with contextlib.redirect_stdout(buf):
+        for c in range(3):
+            accum = guard.run(poisoned, accum, flat, cam, src, c, spp_done=16 * c)
+            plain = step(plain, flat, cam, src, c)
+    torch.cuda.synchronize()
+    kinds = [e["kind"] for e in guard.events]
+    if kinds != ["corrupt-chunk"] or seen != [0, 1, 1, 2]:
+        fail(f"guard on the card: events {guard.events}, attempts {seen}")
+    if not torch.isfinite(accum).all() or torch.equal(accum, plain):
+        fail("guard on the card: the returned buffer is not finite or not reseeded")
+    emit(dict(phase="entry_points", run="guard: NaN on pass 1, attempt 0", events=guard.events,
+              attempts=seen, seconds=time.perf_counter() - t0,
+              max_abs_diff_to_unretried=float((accum - plain).abs().max())))
+
+
+def subprocess_run(tmp: Path, cornell: str):
+    """``python -m tinsel_tpu_torch`` from the repository root."""
+    out = tmp / "subprocess.png"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tinsel_tpu_torch", cornell, "-spp", "4",
+                           "-o", str(out)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    secs = time.perf_counter() - t0
+    m = CLI_LINE.search(proc.stdout)
+    if proc.returncode != 0 or m is None or not out.exists():
+        fail(f"python -m tinsel_tpu_torch: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    emit(dict(phase="entry_points", run="python -m tinsel_tpu_torch cornell.tin -spp 4",
+              exit_code=proc.returncode, seconds=secs, cli_line=m[0]))
+
+
+def http_get(url) -> bytes:
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read()
+
+
+def http_json(url):
+    return json.loads(http_get(url))
+
+
+def viewer_phase(ops_nlm, ops_bvh, dev):
+    """The viewer on a 512x512 Cornell box in a thread: each denoise
+    setting measured for VIEWER_WINDOW_S. Returns its launches."""
+    from tinsel_tpu_torch.app.viewer import run_viewer
+    from tinsel_tpu_torch.scene.presets import cornell_scene
+
+    sc = cornell_scene(VIEWER_W, VIEWER_H, MAIN_DEPTH)
+    chunk = max(1, min(16, (1 << 20) // (VIEWER_W * VIEWER_H)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    stop = threading.Event()
+    reset_counts(ops_nlm, ops_bvh)
+    buf = io.StringIO()
+    thread = threading.Thread(target=run_viewer, args=(sc, sc.options), daemon=True,
+                              kwargs=dict(port=port, stop_event=stop, device=dev))
+
+    def until(ok, what):
+        deadline = time.perf_counter() + VIEWER_DEADLINE_S
+        while time.perf_counter() < deadline:
+            try:
+                st = http_json(f"{base}/status")
+                if ok(st):
+                    return st
+            except OSError:
+                pass
+            time.sleep(0.02)
+        stop.set()
+        fail(f"viewer: no {what} within {VIEWER_DEADLINE_S} s")
+
+    def window(setting):
+        k0 = dict(ops_nlm.launch_counts)
+        a = until(lambda st: st["denoise"] == setting and st["spp"] > 0, f"frame under {setting}")
+        t0 = time.perf_counter()
+        time.sleep(VIEWER_WINDOW_S)
+        b = http_json(f"{base}/status")
+        dt = time.perf_counter() - t0
+        frames = (b["spp"] - a["spp"]) / chunk
+        if frames < 1:
+            fail(f"viewer: no frame in {VIEWER_WINDOW_S} s under {setting}")
+        return dict(ms_per_spp=dt * 1e3 / (frames * chunk), frames_per_s=frames / dt,
+                    status_ms_per_spp=b["ms_per_spp"],
+                    launches={k: ops_nlm.launch_counts[k] - k0[k] for k in k0})
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        thread.start()
+        try:
+            until(lambda st: st["spp"] >= chunk, "first frame")
+            first_s = time.perf_counter() - t0
+            if b"tinsel-tpu" not in http_get(f"{base}/"):
+                fail("viewer: the page is not the viewer's")
+            if not http_get(f"{base}/frame.png").startswith(b"\x89PNG"):
+                fail("viewer: /frame.png is not a PNG")
+            per = {"off": window("off")}
+            http_get(f"{base}/ctl?denoise=toggle")
+            per["nlm"] = window("nlm")
+            http_get(f"{base}/ctl?denoise=toggle")
+            per["guided"] = window("guided")
+            if per["nlm"]["launches"]["nlm_filter"] < 1 or per["guided"]["launches"]["nlm_guided"] < 1:
+                fail(f"viewer: the denoise toggle did not launch K1 / K2: {per}")
+            st = until(lambda st: st["spp"] >= 3 * chunk, "three frames")
+            pos0 = st["cam_pos"]
+            http_get(f"{base}/ctl?move=f")
+            st2 = until(lambda s2: s2["spp"] < st["spp"], "restart after a camera move")
+            if st2["cam_pos"] == pos0:
+                fail("viewer: the fly camera did not move")
+        finally:
+            stop.set()
+            thread.join(timeout=VIEWER_DEADLINE_S)
+    if thread.is_alive():
+        fail("viewer: the render thread did not stop")
+    launches = read_counts(ops_nlm, ops_bvh)
+    emit(dict(phase="entry_points", run=f"viewer cornell {VIEWER_W}x{VIEWER_H} d{MAIN_DEPTH}",
+              spp_per_frame=chunk, first_frame_s=first_s, per_denoise=per,
+              restart_seen=True, seconds=time.perf_counter() - t0, launches=launches))
+    return launches
+
+
 def _rgbe_to_float_ref(rgbe):
     """RGBE bytes to f32: mantissa / 256 * 2^(e - 128), 0 where e = 0."""
     e = rgbe[..., 3].astype(np.int32)
@@ -1852,12 +2307,15 @@ def main():
         mesh_io._CACHE_DIR = str(Path(tmp) / "mesh_cache")  # cold at the first load
         file_launches = scene_files_phase(ops_bvh, dev)
         ajax_launches = ajaxenv_files_phase(ops_bvh, dev, Path(tmp))
+        entry_launches = entry_points_phase(ops_nlm, ops_bvh, dev, Path(tmp))
     # K3/K4 on the big-mesh, probe and scene-file paths, K7 on the
-    # complexity view
+    # complexity view; every kernel on the entry points' runs
     for k in ("bvh_closest", "bvh_any"):
         launches[k] = (big_launches[k] + probe_launches[k] + file_launches[k]
                        + ajax_launches[k])
     launches["bvh_steps"] = probe_launches["bvh_steps"]
+    for k in KERNEL_NAMES:
+        launches[k] += entry_launches[k]
 
     table = []
     for rec, key, replaces in (

@@ -146,9 +146,10 @@ def test_resolve(tonemap):
 
 
 def test_generator_and_numpy_sources():
-    g1 = tsamp.GeneratorUniforms(7, "cpu").uniform((0,), (5, 3))
-    g2 = tsamp.GeneratorUniforms(7, "cpu").uniform((9,), (5, 3))
-    assert g1.dtype == torch.float32 and torch.equal(g1, g2)  # path ignored
+    g1 = tsamp.PathUniforms(7, "cpu").uniform((0,), (5, 3))
+    g2 = tsamp.PathUniforms(7, "cpu").uniform((9,), (5, 3))
+    assert g1.dtype == torch.float32 and not torch.equal(g1, g2)  # the path counts
+    assert torch.equal(tsamp.PathUniforms(7, "cpu").uniform((0,), (5, 3)), g1)
     src = tsamp.NumpyUniforms(3, "cpu")
     a = tsamp.Prefixed(tsamp.Prefixed(src, 1), 2).uniform((0,), (4,))
     assert torch.equal(a, src.uniform((1, 2, 0), (4,)))

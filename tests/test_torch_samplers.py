@@ -56,7 +56,7 @@ def test_toroidal_shift_and_randint_equal_jax():
     np.testing.assert_array_equal(b, a)
     r = JaxUniforms(key).randint((9,), (), 0, 37)
     assert int(r) == int(jax.random.randint(jax.random.fold_in(key, 9), (), 0, 37))
-    for src in (tsampling.NumpyUniforms(1, "cpu"), tsampling.GeneratorUniforms(1, "cpu")):
+    for src in (tsampling.NumpyUniforms(1, "cpu"), tsampling.PathUniforms(1, "cpu")):
         v = tsampling.Prefixed(src, 3).randint((9,), (50,), 2, 6)
         assert v.shape == (50,) and int(v.min()) >= 2 and int(v.max()) < 6
 

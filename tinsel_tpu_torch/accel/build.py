@@ -144,6 +144,29 @@ def build_bvh(lowers: np.ndarray, uppers: np.ndarray,
     )
 
 
+def validate_bvh(bvh: BVH, lowers: np.ndarray, uppers: np.ndarray) -> bool:
+    """Structural check of a binary BVH: every node's box holds its
+    children's or items' boxes (an AssertionError otherwise), and the
+    result says whether every item lies in exactly one leaf range."""
+    seen = np.zeros(lowers.shape[0], np.int64)
+    eps = 1e-5
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if bvh.count[i] > 0:
+            for p in range(bvh.left[i], bvh.left[i] + bvh.count[i]):
+                item = bvh.perm[p]
+                seen[item] += 1
+                assert np.all(bvh.lower[i] <= lowers[item] + eps)
+                assert np.all(bvh.upper[i] >= uppers[item] - eps)
+        else:
+            for c in (bvh.left[i], bvh.right[i]):
+                assert np.all(bvh.lower[i] <= bvh.lower[c] + eps)
+                assert np.all(bvh.upper[i] >= bvh.upper[c] - eps)
+                stack.append(c)
+    return bool(np.all(seen == 1))
+
+
 def triangle_bounds(positions: np.ndarray, indices: np.ndarray):
     """AABBs per triangle. positions (V, 3), indices (T, 3)."""
     tris = positions[indices]

@@ -25,6 +25,11 @@ def dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def vdot(a, b):
+    """Dot product with a trailing singleton axis (broadcast helper)."""
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
 def cross(a, b):
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
@@ -78,6 +83,12 @@ def sqr(x):
 
 
 # ---------------------------------------------------------------- quaternions
+
+
+def quat_identity(shape=()):
+    q = torch.zeros(tuple(shape) + (4,), dtype=torch.float32)
+    q[..., 3] = 1.0
+    return q
 
 
 def quat_conjugate(q):
@@ -180,6 +191,22 @@ def inverse_transform_vector(t: Transform, v):
     return quat_rotate(quat_conjugate(t.q), v) / t.s[..., None]
 
 
+def transform_compose(a: Transform, b: Transform) -> Transform:
+    """a after b: transform_point(compose(a, b), v) equals
+    transform_point(a, transform_point(b, v)), uniform scale included."""
+    return Transform(
+        p=quat_rotate(a.q, b.p * a.s[..., None]) + a.p,
+        q=quat_mul(a.q, b.q),
+        s=a.s * b.s,
+    )
+
+
+def transform_inverse(t: Transform) -> Transform:
+    qc = quat_conjugate(t.q)
+    s_inv = 1.0 / t.s
+    return Transform(p=-quat_rotate(qc, t.p) * s_inv[..., None], q=qc, s=s_inv)
+
+
 def interpolate_transform(a: Transform, b: Transform, t) -> Transform:
     """Motion-blur transform interpolation: lerp p, nlerp q, lerp s."""
     return Transform(
@@ -230,3 +257,9 @@ def look_at_matrix(eye, target, up=(0.0, 1.0, 0.0)):
     cam_to_world[:3, 2] = forward
     cam_to_world[:3, 3] = eye
     return mat44_affine_inverse(cam_to_world)
+
+
+def transform_point_mat44(m, v):
+    """Apply a 4x4 matrix to points of shape (..., 3)."""
+    vh = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+    return torch.einsum("ij,...j->...i", m, vh)[..., :3]

@@ -43,8 +43,11 @@ Read from ``tinsel_tpu/render/renderer.py:55-92, :128-129, :150-152``,
 ``core/sampling.py:79-105`` and ``bsdf/disney.py:180-181``;
 ``make_accumulate_fn`` folds the pass index in first. A source built on
 ``jax.random`` therefore reproduces the JAX package's draws exactly (the
-tests do this); the default source below draws from a
-``torch.Generator`` and ignores the path.
+tests do this). ``PathUniforms``, the default of every entry point, draws
+on the device as a function of (seed, path) alone, as the JAX package's
+draws are a function of (key, path), so a pass draws the same samples
+whichever passes ran before it (the CLI's resume and the viewer's restart
+rest on this, and ``render(seed=s)`` equals the CLI's ``-seed s``).
 """
 
 from __future__ import annotations
@@ -65,24 +68,49 @@ class UniformSource(Protocol):
         """Integers in [low, high) of ``shape`` for the draw named ``path``."""
 
 
-class GeneratorUniforms:
-    """Draws from one ``torch.Generator`` on ``device``; ignores the path,
-    so the stream depends on the order of the draws only."""
+_M64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """SplitMix64's finalizer: a bijection of 64-bit ints that spreads
+    every input bit over the output."""
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def path_seed(seed: int, path) -> int:
+    """A 64-bit generator seed that is a hash of (seed, *path): each entry
+    mixed in turn, then the path's length, so (1,) and (1, 0) differ."""
+    h = _mix64(int(seed) & _M64)
+    for p in path:
+        h = _mix64(h ^ (int(p) & _M64))
+    return _mix64(h ^ len(path))
+
+
+class PathUniforms:
+    """Deterministic per path, drawn on ``device``: each draw reseeds a
+    ``torch.Generator`` on the device with ``path_seed(seed, path)``. A
+    draw depends on (seed, path, shape) only, never on the draws made
+    before it."""
 
     def __init__(self, seed: int, device):
+        self.seed = int(seed)
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+
+    def _seeded(self, path):
+        self.generator.manual_seed(path_seed(self.seed, path))
+        return self.generator
 
     def uniform(self, path, shape):
-        return torch.rand(
-            tuple(shape), generator=self.generator, device=self.device,
-            dtype=torch.float32,
-        )
+        return torch.rand(tuple(shape), generator=self._seeded(path),
+                          device=self.device, dtype=torch.float32)
 
     def randint(self, path, shape, low, high):
-        return torch.randint(int(low), int(high), tuple(shape), generator=self.generator,
-                             device=self.device)
+        return torch.randint(int(low), int(high), tuple(shape),
+                             generator=self._seeded(path), device=self.device)
 
 
 class NumpyUniforms:
@@ -155,6 +183,23 @@ def uniform_sample_triangle(u1, u2):
     """Uniform barycentric (u, v) on a triangle."""
     r = torch.sqrt(u1)
     return 1.0 - r, u2 * r
+
+
+def stratified_offsets_2d(n_x: int, n_y: int, source):
+    """Jittered-stratified sample positions in [0,1)^2, shape (n_x*n_y, 2);
+    the jitter is ``source`` at path ()."""
+    jit = source.uniform((), (n_x * n_y, 2))
+    i = torch.arange(n_x * n_y, device=jit.device)
+    grid = torch.stack([i % n_x, i // n_x], dim=-1).to(torch.float32)
+    scale = torch.tensor([1.0 / n_x, 1.0 / n_y], dtype=torch.float32, device=jit.device)
+    return (grid + jit) * scale
+
+
+def stratified_offsets_1d(n: int, source):
+    """Jittered-stratified samples in [0,1), shape (n,); the jitter is
+    ``source`` at path ()."""
+    jit = source.uniform((), (n,))
+    return (torch.arange(n, dtype=torch.float32, device=jit.device) + jit) / n
 
 
 def _toroidal_dist2(p, q):

@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.sampling import GeneratorUniforms, Prefixed
+from ..core.sampling import PathUniforms, Prefixed
 from ..device import resolve_device
 from ..diff.gradients import linear_image
 from ..render.camera import CameraParams
@@ -32,14 +32,14 @@ def main(steps: int = 60, size: int = 64, spp_target: int = 8, seed: int = 0,
     """Returns (err0, err1): the mean color error of the visible (non-
     emissive) materials before and after ``steps`` Adam steps. The target
     averages ``spp_target`` one-sample passes (the JAX example averages 8).
-    ``source``: a UniformSource (default: a torch.Generator from ``seed``);
+    ``source``: a UniformSource (default: ``PathUniforms(seed)``);
     ``max_depth``: bounces (the JAX example renders at 3)."""
     dev = resolve_device(device)
     scene = cornell_scene(width=size, height=size, max_depth=max_depth)
     flat = scene.flatten(dev)
     cam = CameraParams.from_host(scene.camera, dev)
     if source is None:
-        source = GeneratorUniforms(seed, dev)
+        source = PathUniforms(seed, dev)
     opts = dict(width=size, height=size, max_depth=max_depth)
 
     def one_pass(color, src):

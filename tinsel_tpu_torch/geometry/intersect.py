@@ -84,3 +84,9 @@ def intersect_ray_aabb(lower, upper, origin, rcp_direction):
     lmax = torch.maximum(l1, l2).amin(dim=-1)
     hit = (lmax >= 0.0) & (lmax >= lmin)
     return hit, lmin
+
+
+def triangle_area(a, b, c):
+    return 0.5 * torch.sqrt(
+        torch.clamp(torch.sum(cross(b - a, c - a) ** 2, dim=-1), min=0.0)
+    )

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core.math import lerp
-from ..core.sampling import GeneratorUniforms, Prefixed
+from ..core.sampling import PathUniforms, Prefixed
 from ..device import resolve_device
 from ..scene.model import SceneFlat
 from .camera import CameraParams, generate_rays
@@ -126,7 +126,7 @@ def adaptive_render(scene_host, budget_spp: int, seed: int = 0, options=None,
     ``warmup_spp`` uniform samples over every tile (at least one round of
     ``spp_round``), then rounds of ``spp_round`` samples on the top
     ``frac`` of tiles while the budget lasts; round r draws under (r,) of
-    ``source`` (default a torch.Generator seeded with ``seed``). Returns
+    ``source`` (default ``PathUniforms(seed)`` on the device). Returns
     the (H, W, 4) accumulation buffer (resolve as usual). ``device``:
     None means cuda."""
     device = resolve_device(device)
@@ -136,7 +136,7 @@ def adaptive_render(scene_host, budget_spp: int, seed: int = 0, options=None,
     flat = scene_host.flatten(device)
     cam = CameraParams.from_host(scene_host.camera, device)
     if source is None:
-        source = GeneratorUniforms(seed, device)
+        source = PathUniforms(seed, device)
     n_tiles = (w // TILE) * (h // TILE)
     k = max(1, min(n_tiles, int(round(frac * n_tiles))))
 

@@ -1,11 +1,13 @@
 """AOV passes: per-pixel normal, depth and albedo, the guide inputs of the
-guided NLM denoiser (port of ``render_aovs`` in
+guided NLM denoiser, and their PFM files (port of
 ``tinsel_tpu/render/aov.py``). One closest-hit trace at pixel centers."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..io.hdr import save_pfm
 from ..scene.model import SceneFlat
 from .camera import CameraParams, generate_rays
 from .trace import trace_closest
@@ -37,3 +39,20 @@ def render_aovs(scene: SceneFlat, cam: CameraParams, width: int, height: int):
         depth=depth.reshape(*shp, 1),
         albedo=albedo.reshape(*shp, 3),
     )
+
+
+def write_aovs(prefix: str, aovs: dict) -> list:
+    """Write each AOV tensor of ``aovs`` (``render_aovs``' dict) as
+    ``{prefix}_{name}.pfm``, a one-channel AOV as RGB; returns the paths.
+    The tensors come to the host in one copy."""
+    names = list(aovs)
+    host = torch.cat([aovs[k].detach().float() for k in names], dim=-1).cpu().numpy()
+    widths = np.cumsum([aovs[k].shape[-1] for k in names])[:-1]
+    paths = []
+    for name, a in zip(names, np.split(host, widths, axis=-1)):
+        if a.shape[-1] == 1:
+            a = np.repeat(a, 3, axis=-1)  # grayscale PFM as RGB
+        path = f"{prefix}_{name}.pfm"
+        save_pfm(path, a)
+        paths.append(path)
+    return paths

@@ -16,7 +16,7 @@ from functools import partial
 import torch
 
 from ..core.math import clamp_length, lerp
-from ..core.sampling import GeneratorUniforms, Prefixed, best_candidate_2d
+from ..core.sampling import PathUniforms, Prefixed, best_candidate_2d
 from ..device import resolve_device
 from ..scene.model import Options, SceneFlat
 from .camera import CameraParams, generate_rays
@@ -151,14 +151,15 @@ def render(scene_host, spp: int, seed: int = 0, options: Options = None,
     """Host loop: flatten, then accumulate ``spp`` samples in passes of at
     most ~1M rays. Returns the (H, W, 4) accumulation buffer (resolve with
     core.color.resolve). ``device``: None means cuda (raises without a
-    GPU). ``source``: a UniformSource; default a torch.Generator seeded
-    with ``seed`` on the device."""
+    GPU). ``source``: a UniformSource; default ``PathUniforms(seed)`` on
+    the device, the CLI's source, so ``seed`` gives the CLI's ``-seed``
+    image."""
     device = resolve_device(device)
     options = options or scene_host.options
     flat = scene_host.flatten(device)
     cam = CameraParams.from_host(scene_host.camera, device)
     if source is None:
-        source = GeneratorUniforms(seed, device)
+        source = PathUniforms(seed, device)
     if samples_per_pass is None:
         samples_per_pass = max(
             1, min(spp, (1 << 20) // max(options.width * options.height, 1))

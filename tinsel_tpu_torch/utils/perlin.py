@@ -1,5 +1,5 @@
 """Perlin gradient noise in NumPy for host-side procedural content (the
-port's own copy of ``perlin3d`` and ``fractal3d`` from
+port's own copy of ``perlin3d``, its 2D and 1D slices and ``fractal3d`` from
 ``tinsel_tpu/utils/perlin.py``, same permutation table)."""
 
 from __future__ import annotations
@@ -46,6 +46,14 @@ def perlin3d(x, y, z, period: int | None = None):
     x01 = lerp(corner(0, 0, 1), corner(1, 0, 1), u)
     x11 = lerp(corner(0, 1, 1), corner(1, 1, 1), u)
     return lerp(lerp(x00, x10, v), lerp(x01, x11, v), w)
+
+
+def perlin2d(x, y, period: int | None = None):
+    return perlin3d(x, y, 0.5, period)
+
+
+def perlin1d(x, period: int | None = None):
+    return perlin3d(x, 0.5, 0.5, period)
 
 
 def fractal3d(x, y, z, octaves: int = 3, persistence: float = 0.5,
