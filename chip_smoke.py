@@ -88,7 +88,24 @@ Phases, each fatal on failure (exit code 1):
     ``python -m tinsel_tpu_torch`` in a subprocess; the HTTP viewer on a
     512x512 Cornell box in a thread (page, frame, status; denoise off,
     "nlm" (K1) and "guided" (K2), each with its ms per spp and frames per
-    second; a fly-camera move restarts the accumulation).
+    second; a fly-camera move restarts the accumulation);
+14. multi-GPU (``parallel/sharding.py``, ``parallel/pipeline.py``) on the
+    one card, each rank a process of this script (``--multi-gpu-rank``)
+    on ``cuda:0``, every job under a deadline: the unsharded references
+    first (the sum of 2 passes of Cornell and of ``envmesh_scene(512,
+    512, 4, probe=True)``, the loss and gradients of Cornell over those
+    passes, ``path_trace`` of the 512x512 pixel centres and of its four
+    quarters under ``Prefixed(source, m)``); then a world-1 NCCL rank
+    (one all-reduce of the 512x512 RGBA f32 buffer timed; the sharded
+    Cornell render); two gloo ranks (the all-reduce; the sharded render of
+    Cornell and of the probe-lit envmesh on meshes (rays 2, spp 1) and
+    (1, 2), K3/K4 counts reset just before and read just after, and each
+    K3/K4 call of a rank held against the plain walk on its own inputs;
+    the sharded train step on (2, 1) with its ms and peak memory); four
+    gloo stage ranks running the pipeline at ``n_micro`` 1 and 4. Images
+    within rtol 2e-5 / atol 2e-6 of the unsharded sum, equal on every
+    rank; the loss within rtol 1e-4 and the gradients within rtol 2e-3 /
+    atol 2e-5; the pipeline within atol 1e-5 of ``path_trace``.
 
 The 524k sphere's tree (phase 6) comes from the native builder.
 
@@ -2241,6 +2258,363 @@ def viewer_phase(ops_nlm, ops_bvh, dev):
     return launches
 
 
+# ------------------------------------------------------------- multi-GPU
+
+MG_W = MG_H = 512
+MG_DEPTH = 4  # also the pipeline's stages: one a bounce
+MG_PASSES = 2
+MG_SEED = 21
+MG_DEADLINE_S = 300.0  # each job's ranks, start-up included
+# sharded against unsharded (tests/test_sharding.py:78, :98-104); the
+# pipeline against path_trace on the same draws
+SHARD_RTOL, SHARD_ATOL = 2e-5, 2e-6
+LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-4, 2e-3, 2e-5
+PIPE_ATOL = 1e-5
+ALLREDUCE_REPS = 20
+
+
+def mg_scene(name: str, dev):
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene.presets import cornell_scene, envmesh_scene
+
+    sc = (envmesh_scene(MG_W, MG_H, MG_DEPTH, probe=True) if name == "envmesh"
+          else cornell_scene(MG_W, MG_H, MG_DEPTH))
+    return sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+
+
+def mg_sources(dev):
+    from tinsel_tpu_torch.core.sampling import PathUniforms, Prefixed
+
+    return [Prefixed(PathUniforms(MG_SEED, dev), j) for j in range(MG_PASSES)]
+
+
+def mg_rays(cam):
+    """The pixel centres' camera rays of the 512x512 image, times 0."""
+    from tinsel_tpu_torch.render.camera import generate_rays
+
+    dev = cam.position.device
+    xs = torch.arange(MG_W, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(MG_H, dtype=torch.float32, device=dev) + 0.5
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    o, d = generate_rays(cam, MG_W, MG_H, torch.stack([gx, gy], -1).reshape(-1, 2))
+    return o, d, torch.zeros(MG_W * MG_H, device=dev)
+
+
+def _flat_grads(gm, gc) -> dict:
+    out = {}
+    for prefix, obj in (("materials", gm), ("camera", gc)):
+        for f in dataclasses.fields(obj):
+            out[f"{prefix}.{f.name}"] = getattr(obj, f.name)
+    return out
+
+
+def _synced_s(run) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def hold_walk_calls(calls, outs) -> dict:
+    """Each K3/K4 call a rank's render made, its output against the plain
+    walk on the same inputs: no differing triangle or lane, |dt| within
+    KERNEL_TOL."""
+    from tinsel_tpu_torch.accel import traverse as plain
+
+    rec = {}
+    for name, walk in (("closest_hit", plain.intersect_mesh), ("any_hit", plain.intersect_mesh_any)):
+        lanes = mismatched = 0
+        err = 0.0
+        for (a, k), out in zip(calls[name], outs.get(name, [])):
+            pool, noff, toff, o, d, tmax, *slots = a  # the dispatchers' arguments
+            slots = slots[0] if slots else k.get("stack_slots", plain.DEFAULT_STACK_SLOTS)
+            ref = walk(pool, noff, toff, o, d, tmax, stack_slots=slots)
+            lanes += o.shape[0]
+            if name == "closest_hit":
+                (t, tri), (t_ref, tri_ref) = out, ref
+                mismatched += int((tri != tri_ref).sum())
+                fin = torch.isfinite(t_ref)
+                if not torch.equal(torch.isfinite(t), fin):
+                    err = float("inf")
+                elif bool(fin.any()):
+                    err = max(err, float((t - t_ref)[fin].abs().max()))
+            else:
+                mismatched += int((out != ref).sum())
+        rec[name] = dict(calls=len(calls[name]), lanes=lanes, mismatched=mismatched,
+                         max_abs_err=err)
+    return rec
+
+
+def mg_task(task, dev, ops_bvh) -> tuple:
+    """One task of a rank: (scalars, arrays)."""
+    import torch.distributed as dist
+
+    from tinsel_tpu_torch.parallel import pipeline, sharding
+
+    kind = task["kind"]
+    opts = dict(width=MG_W, height=MG_H, max_depth=MG_DEPTH)
+    if kind == "allreduce":  # the 512^2 RGBA f32 buffer, 4 MiB
+        buf = torch.ones((MG_H, MG_W, 4), device=dev)
+        for _ in range(3):
+            dist.all_reduce(buf)
+        dist.barrier()
+        s = _synced_s(lambda: [dist.all_reduce(buf) for _ in range(ALLREDUCE_REPS)])
+        return dict(ms=s * 1e3 / ALLREDUCE_REPS, bytes=buf.numel() * 4), {}
+    flat, cam = mg_scene(task["scene"], dev)
+    if kind == "pipeline":
+        mesh = pipeline.make_stage_mesh(MG_DEPTH)
+        src = mg_sources(dev)[0]
+        o, d, t = (torch.from_numpy(np.load(task["rays"])[k]).to(dev) for k in ("o", "d", "t"))
+        scalars, arrays = {}, {}
+        pipeline.path_trace_pipelined(flat, o, d, t, MG_DEPTH, src, mesh)  # warm-up
+        for n in task["n_micro"]:
+            dist.barrier()
+            out = {}
+            s = _synced_s(lambda: out.setdefault("rad", pipeline.path_trace_pipelined(
+                flat, o, d, t, MG_DEPTH, src, mesh, n_micro=n)))
+            scalars[f"n_micro{n}_ms"] = s * 1e3
+            arrays[f"n_micro{n}"] = out["rad"].cpu().numpy()
+        return scalars, arrays
+    mesh = sharding.make_mesh(spp_parallel=task["spp_parallel"])
+    sources = mg_sources(dev)
+    scalars = dict(mesh=list(mesh.shape), coordinate=list(mesh.get_coordinate()))
+    if kind == "render":
+        fn = sharding.sharded_render_fn(mesh, MG_PASSES, **opts)
+        out, outs = {}, {}
+        dist.barrier()
+        torch.cuda.synchronize()
+        ops_bvh.reset_launch_counts()
+        calls = capture_calls(((ops_bvh, "closest_hit"), (ops_bvh, "any_hit")),
+                              lambda: out.setdefault("img", fn(flat, cam, sources)), outs)
+        torch.cuda.synchronize()
+        scalars["launches"] = dict(ops_bvh.launch_counts)
+        dist.barrier()
+        s = _synced_s(lambda: fn(flat, cam, sources))
+        scalars["ms_per_spp"] = s * 1e3 / MG_PASSES
+        scalars["walks"] = hold_walk_calls(calls, outs)
+        return scalars, {"image": out["img"].cpu().numpy()}
+    step = sharding.sharded_train_step(mesh, MG_PASSES, **opts)
+    target = torch.full((MG_H, MG_W, 3), 0.25, device=dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    scalars["first_step_s"] = _synced_s(
+        lambda: out.setdefault("step", step(flat, cam, sources, target)))
+    scalars["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    dist.barrier()
+    scalars["step_ms"] = _synced_s(lambda: step(flat, cam, sources, target)) * 1e3
+    loss, gm, gc = out["step"]
+    scalars["loss"] = float(loss)
+    return scalars, {k: v.cpu().numpy() for k, v in _flat_grads(gm, gc).items()}
+
+
+def mg_rank(job_path: str, rank: int):
+    """``chip_smoke.py --multi-gpu-rank JOB RANK``: one rank of a job of the
+    multi_gpu phase, on the one card. Writes rank<r>.json and rank<r>.npz
+    beside the job."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the multi-GPU ranks run on an NVIDIA GPU")
+    import_port()
+    import torch.distributed as dist
+
+    from tinsel_tpu_torch.device import resolve_device
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+    from tinsel_tpu_torch.parallel.sharding import init_distributed
+
+    job_path = Path(job_path)
+    job = json.loads(job_path.read_text())
+    dev = resolve_device("cuda:0")  # every rank on the one card
+    torch.cuda.set_device(dev)
+    init_distributed(job["init"], job["world"], rank, backend=job["backend"])
+    scalars, arrays = {}, {}
+    try:
+        for task in job["tasks"]:
+            s, a = mg_task(task, dev, ops_bvh)
+            scalars[task["name"]] = s
+            arrays.update({f"{task['name']}.{k}": v for k, v in a.items()})
+    finally:
+        dist.destroy_process_group()
+    np.savez(job_path.parent / f"rank{rank}.npz", **arrays)
+    (job_path.parent / f"rank{rank}.json").write_text(json.dumps(scalars))
+
+
+def run_mg_job(tmp: Path, name: str, world: int, backend: str, tasks) -> list:
+    """Start ``world`` ranks of ``chip_smoke.py --multi-gpu-rank`` and wait
+    for them under MG_DEADLINE_S; a rank that exits non-zero or a run past
+    the deadline is fatal (every rank left is killed). Returns each rank's
+    (scalars, arrays)."""
+    d = tmp / name
+    d.mkdir(parents=True)
+    (d / "job.json").write_text(json.dumps(dict(
+        init=f"file://{d / 'rendezvous'}", world=world, backend=backend, tasks=tasks)))
+    logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--multi-gpu-rank",
+                               str(d / "job.json"), str(r)], cwd=ROOT, stdout=log,
+                              stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.perf_counter() + MG_DEADLINE_S
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                tail = (d / f"rank{bad[0]}.log").read_text()[-4000:]
+                fail(f"multi_gpu {name}: rank {bad[0]} exited {codes[bad[0]]}:\n{tail}")
+            if all(c == 0 for c in codes):
+                break
+            if time.perf_counter() > deadline:
+                fail(f"multi_gpu {name}: the ranks ran past {MG_DEADLINE_S} s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    return [(json.loads((d / f"rank{r}.json").read_text()), dict(np.load(d / f"rank{r}.npz")))
+            for r in range(world)]
+
+
+def _rel_err(a, b, atol, rtol) -> float:
+    """The largest |a - b| / (atol + rtol |b|): within the limits at <= 1."""
+    return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+
+def multi_gpu_phase(dev, tmp: Path) -> dict:
+    """Item 14 of the module docstring. Returns the K3/K4 launches of the
+    ranks' sharded renders, and the ranks' walk checks."""
+    from tinsel_tpu_torch.core.sampling import Prefixed
+    from tinsel_tpu_torch.diff.gradients import linear_image, loss_and_grads
+    from tinsel_tpu_torch.render.integrator import path_trace
+    from tinsel_tpu_torch.render.renderer import render_pass
+
+    t_phase = time.perf_counter()
+    opts = dict(width=MG_W, height=MG_H, max_depth=MG_DEPTH)
+    # the unsharded references on the card, on the ranks' draws
+    ref = {}
+    with torch.no_grad():
+        for name in ("cornell", "envmesh"):
+            flat, cam = mg_scene(name, dev)
+            sources = mg_sources(dev)
+            sum(render_pass(flat, cam, s, **opts) for s in sources)  # warm-up
+            out = {}
+            s = _synced_s(lambda: out.setdefault(
+                "acc", sum(render_pass(flat, cam, s, **opts) for s in sources)))
+            ref[name] = dict(image=out["acc"].cpu().numpy(), ms_per_spp=s * 1e3 / MG_PASSES)
+            if not np.isfinite(ref[name]["image"]).all():
+                fail(f"multi_gpu: the unsharded {name} render is not finite")
+    flat, cam = mg_scene("cornell", dev)
+    sources = mg_sources(dev)
+    target = torch.full((MG_H, MG_W, 3), 0.25, device=dev)
+
+    def loss_fn(sc, c):
+        accum = sum(render_pass(sc, c, s, **opts) for s in sources)
+        return torch.mean((linear_image(accum) - target) ** 2)
+
+    loss_u, (gm_u, gc_u) = loss_and_grads(loss_fn, flat, cam)
+    grads_u = {k: v.cpu().numpy() for k, v in _flat_grads(gm_u, gc_u).items()}
+    o, d, t = mg_rays(cam)
+    np.savez(tmp / "mg_rays.npz", o=o.cpu().numpy(), d=d.cpu().numpy(), t=t.cpu().numpy())
+    micro = MG_W * MG_H // 4
+    with torch.no_grad():
+        pipe_ref = {1: path_trace(flat, o, d, t, MG_DEPTH, sources[0]).cpu().numpy(),
+                    4: torch.cat([path_trace(flat, o[m * micro:(m + 1) * micro],
+                                             d[m * micro:(m + 1) * micro],
+                                             t[m * micro:(m + 1) * micro], MG_DEPTH,
+                                             Prefixed(sources[0], m))
+                                  for m in range(4)]).cpu().numpy()}
+    del flat, cam, gm_u, gc_u, o, d, t
+    torch.cuda.empty_cache()
+    emit(dict(phase="multi_gpu_setup", seconds=time.perf_counter() - t_phase,
+              unsharded_ms_per_spp={k: v["ms_per_spp"] for k, v in ref.items()},
+              unsharded_loss=float(loss_u)))
+
+    jobs = {
+        "nccl_world1": (1, "nccl", [
+            dict(name="allreduce", kind="allreduce"),
+            dict(name="render cornell (1,1)", kind="render", scene="cornell", spp_parallel=1),
+        ]),
+        "gloo_world2": (2, "gloo", [dict(name="allreduce", kind="allreduce")] + [
+            dict(name=f"render {sc} ({2 // spp},{spp})", kind="render", scene=sc, spp_parallel=spp)
+            for sc in ("cornell", "envmesh") for spp in (1, 2)
+        ] + [dict(name="train cornell (2,1)", kind="train", scene="cornell", spp_parallel=1)]),
+        "gloo_world4_pipeline": (4, "gloo", [
+            dict(name="pipeline cornell", kind="pipeline", scene="cornell",
+                 rays=str(tmp / "mg_rays.npz"), n_micro=[1, 4])]),
+    }
+    launches = {"bvh_closest": 0, "bvh_any": 0}
+    walk_err = {"bvh_closest": 0.0, "bvh_any": 0.0}
+    for job, (world, backend, tasks) in jobs.items():
+        t_job = time.perf_counter()
+        ranks = run_mg_job(tmp, job, world, backend, tasks)
+        for task in tasks:
+            name = task["name"]
+            recs = [sc[name] for sc, _ in ranks]
+            base = dict(phase="multi_gpu", job=job, backend=backend, world=world, run=name)
+            if task["kind"] == "allreduce":
+                emit(dict(base, what=f"one all_reduce of a {MG_W}x{MG_H} RGBA f32 buffer",
+                          ms_per_rank=[r["ms"] for r in recs], bytes=recs[0]["bytes"]))
+                continue
+            if task["kind"] == "pipeline":
+                stages = world
+                per = {}
+                for n in task["n_micro"]:
+                    outs = [a[f"{name}.n_micro{n}"] for _, a in ranks]
+                    err = max(float(np.abs(x - pipe_ref[n]).max()) for x in outs)
+                    per[n] = dict(max_abs_diff=err, ms_per_pass=max(r[f"n_micro{n}_ms"] for r in recs),
+                                  ms_per_rank=[r[f"n_micro{n}_ms"] for r in recs],
+                                  bubble_share=(stages - 1) / (n + stages - 1))
+                    if not err <= PIPE_ATOL:
+                        fail(f"multi_gpu {name} n_micro {n}: {err} from path_trace")
+                emit(dict(base, stages=stages, rays=MG_W * MG_H, n_micro=per,
+                          atol=PIPE_ATOL))
+                continue
+            if task["kind"] == "render":
+                want = ref[task["scene"]]["image"]
+                imgs = [a[f"{name}.image"] for _, a in ranks]
+                worst = max(_rel_err(x, want, SHARD_ATOL, SHARD_RTOL) for x in imgs)
+                walks = [r["walks"] for r in recs]
+                for r in recs:
+                    for k in launches:
+                        launches[k] += r["launches"][k]
+                for key, call in (("bvh_closest", "closest_hit"), ("bvh_any", "any_hit")):
+                    for w in walks:
+                        walk_err[key] = max(walk_err[key], w[call]["max_abs_err"])
+                        if w[call]["mismatched"] or not w[call]["max_abs_err"] <= KERNEL_TOL:
+                            fail(f"multi_gpu {name}: a rank's {call} differs from the plain "
+                                 f"walk: {w[call]}")
+                emit(dict(base, scene=f"{task['scene']} {MG_W}x{MG_H} d{MG_DEPTH}",
+                          passes=MG_PASSES, mesh=recs[0]["mesh"],
+                          max_abs_diff=max(float(np.abs(x - want).max()) for x in imgs),
+                          worst_over_limit=worst, ms_per_spp_per_rank=[r["ms_per_spp"] for r in recs],
+                          unsharded_ms_per_spp=ref[task["scene"]]["ms_per_spp"],
+                          launches_per_rank=[r["launches"] for r in recs], walks_per_rank=walks))
+                if not worst <= 1.0 or not all(np.array_equal(imgs[0], x) for x in imgs):
+                    fail(f"multi_gpu {name}: the sharded image is not the unsharded sum "
+                         f"within rtol {SHARD_RTOL}, atol {SHARD_ATOL} ({worst}), or the ranks differ")
+                if task["scene"] == "envmesh" and any(
+                        min(r["launches"]["bvh_closest"], r["launches"]["bvh_any"]) < 1
+                        for r in recs):
+                    fail(f"multi_gpu {name}: K3 and K4 did not both launch in every rank")
+                continue
+            loss_rel = max(abs(r["loss"] - float(loss_u)) / abs(float(loss_u)) for r in recs)
+            worst = max(_rel_err(a[f"{name}.{k}"], g, GRAD_ATOL, GRAD_RTOL)
+                        for _, a in ranks for k, g in grads_u.items())
+            emit(dict(base, scene=f"cornell {MG_W}x{MG_H} d{MG_DEPTH}", passes=MG_PASSES,
+                      mesh=recs[0]["mesh"], loss=recs[0]["loss"], loss_rel_diff=loss_rel,
+                      grads_worst_over_limit=worst, step_ms_per_rank=[r["step_ms"] for r in recs],
+                      first_step_s_per_rank=[r["first_step_s"] for r in recs],
+                      peak_gib_per_rank=[r["peak_gib"] for r in recs]))
+            if not loss_rel <= LOSS_RTOL or not worst <= 1.0:
+                fail(f"multi_gpu {name}: loss {loss_rel} or gradients {worst} off the unsharded step")
+        emit(dict(phase="multi_gpu_job", job=job, seconds=time.perf_counter() - t_job))
+    emit(dict(phase="multi_gpu_done", seconds=time.perf_counter() - t_phase, launches=launches))
+    return launches, walk_err
+
+
 def _rgbe_to_float_ref(rgbe):
     """RGBE bytes to f32: mantissa / 256 * 2^(e - 128), 0 where e = 0."""
     e = rgbe[..., 3].astype(np.int32)
@@ -2308,6 +2682,7 @@ def main():
         file_launches = scene_files_phase(ops_bvh, dev)
         ajax_launches = ajaxenv_files_phase(ops_bvh, dev, Path(tmp))
         entry_launches = entry_points_phase(ops_nlm, ops_bvh, dev, Path(tmp))
+        mg_launches, mg_walk_err = multi_gpu_phase(dev, Path(tmp))
     # K3/K4 on the big-mesh, probe and scene-file paths, K7 on the
     # complexity view; every kernel on the entry points' runs
     for k in ("bvh_closest", "bvh_any"):
@@ -2316,6 +2691,8 @@ def main():
     launches["bvh_steps"] = probe_launches["bvh_steps"]
     for k in KERNEL_NAMES:
         launches[k] += entry_launches[k]
+    for k in mg_launches:  # the ranks' sharded renders
+        launches[k] += mg_launches[k]
 
     table = []
     for rec, key, replaces in (
@@ -2345,7 +2722,7 @@ def main():
         table.append(dict(
             name=key, route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
             replaces=replaces, launches=launches[key],
-            max_abs_err=max(r["max_abs_err"] for r in walks[key]),
+            max_abs_err=max([r["max_abs_err"] for r in walks[key]] + [mg_walk_err[key]]),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             bound_share=rec["bound_share"], library_ms=None,
@@ -2366,4 +2743,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multi-gpu-rank"]:
+        mg_rank(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

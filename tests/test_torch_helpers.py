@@ -167,7 +167,7 @@ def test_profiling_sync_timer_and_trace(tmp_path, capsys):
 # tinsel_tpu's public names with no counterpart in the port, each for a
 # reason ROADMAP.md records: TPU machinery, JAX key plumbing (the port's
 # UniformSource replaces fold_key / uniforms), the Pallas kernels' own
-# names (their port is ops/nlm.py), and the multi-GPU slice still to come.
+# names (their port is ops/nlm.py).
 NOT_PORTED = {
     "accel/build.py": {"set_wide_k", "set_block_size", "pack_nodes", "compute_skip_links"},
     "accel/packets.py": {"intersect_mesh_packets"},
@@ -176,9 +176,6 @@ NOT_PORTED = {
                           "nlm_guided_denoise"},
     "utils/compile_cache.py": {"enable_compile_cache"},
     "utils/profiling.py": {"xla_trace"},
-    "parallel/sharding.py": {"init_distributed", "make_mesh", "sharded_render_fn",
-                             "sharded_train_step"},
-    "parallel/pipeline.py": {"make_stage_mesh", "path_trace_pipelined"},
 }
 
 

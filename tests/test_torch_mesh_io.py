@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+import torch_parity  # noqa: F401  (builds tinsel_tpu's native library once, locked)
 from tinsel_tpu.scene.loaders import mesh_io as jio
 from tinsel_tpu_torch.scene import procedural as tproc
 from tinsel_tpu_torch.scene.loaders import mesh_io as tio

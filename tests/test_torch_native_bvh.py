@@ -5,6 +5,7 @@ bit, the same dispatch thresholds, and a failed build raises."""
 import numpy as np
 import pytest
 
+import torch_parity  # noqa: F401  (builds tinsel_tpu's native library once, locked)
 from tinsel_tpu.accel import build as jbuild
 from tinsel_tpu.native import bvh_native as jnative
 from tinsel_tpu_torch.accel import build as tbuild

@@ -1,10 +1,15 @@
 """Helpers shared by the tests that hold tinsel_tpu_torch against tinsel_tpu:
-a JAX-backed UniformSource and numpy views of the JAX package's state."""
+a JAX-backed UniformSource and numpy views of the JAX package's state.
+
+Importing this module builds tinsel_tpu's native BVH library
+(``build_jax_native_library``) before any test runs."""
 
 from __future__ import annotations
 
 import dataclasses
+import fcntl
 import os
+import subprocess
 
 import jax
 import numpy as np
@@ -167,3 +172,35 @@ def check_scene_file(name, tmp_path, monkeypatch, seed, max_depth=4, ill_conditi
 
 def pixels_close(b, a):
     return np.isclose(b, a, atol=1e-4, rtol=1e-3).all(axis=-1)
+
+
+def build_jax_native_library():
+    """Build ``tinsel_tpu/native/libtinselbvh.so`` if it is missing or older
+    than its source, once across processes.
+
+    ``tinsel_tpu/native/bvh_native.py::_ensure_lib`` compiles the library at
+    first use into one fixed temporary name under a ``threading.Lock``, which
+    holds within a process only: two test workers compiling at once write
+    the same temporary file, and one of them then renames a file the other
+    is still writing ("file too short") or finds it gone. Here the build runs
+    under an exclusive ``flock`` on the source, with the JAX package's
+    compiler flags, into a per-process temporary name renamed atomically;
+    ``_ensure_lib`` then finds the library up to date and compiles nothing.
+    pytest-xdist workers import every test module before any of them runs a
+    test, so calling this at import covers the JAX package's own tests too."""
+    from tinsel_tpu.native import bvh_native
+
+    so, src = bvh_native._SO, bvh_native._SRC
+    with open(src, "rb") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+                tmp = f"{so}.tmp{os.getpid()}"
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp],
+                               check=True, capture_output=True)
+                os.replace(tmp, so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+build_jax_native_library()

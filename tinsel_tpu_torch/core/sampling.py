@@ -48,6 +48,8 @@ on the device as a function of (seed, path) alone, as the JAX package's
 draws are a function of (key, path), so a pass draws the same samples
 whichever passes ran before it (the CLI's resume and the viewer's restart
 rest on this, and ``render(seed=s)`` equals the CLI's ``-seed s``).
+``Lanes`` gives a shard of a path batch its lanes of the whole batch's
+draws.
 """
 
 from __future__ import annotations
@@ -148,6 +150,32 @@ class Prefixed:
 
     def randint(self, path, shape, low, high):
         return self.base.randint(self.prefix + tuple(path), shape, low, high)
+
+
+class Lanes:
+    """The draws of some lanes of a batch of ``n``: a draw of shape
+    ``(len(index), ...)`` reads ``base`` at the whole batch's
+    ``(n, ...)`` and keeps the rows ``index``. A shard of a path batch
+    (``parallel/sharding.py``) so draws exactly the numbers the whole batch
+    gives its lanes: the JAX package's bits, like ``PathUniforms``'
+    generator, depend on the shape of the draw."""
+
+    def __init__(self, base, index: torch.Tensor, n: int):
+        self.base = base
+        self.index = index
+        self.n = int(n)
+
+    def _full(self, shape):
+        shape = tuple(shape)
+        if not shape or shape[0] != self.index.numel():
+            raise ValueError(f"a draw of {shape} is not one of {self.index.numel()} lanes")
+        return (self.n, *shape[1:])
+
+    def uniform(self, path, shape):
+        return self.base.uniform(path, self._full(shape)).index_select(0, self.index)
+
+    def randint(self, path, shape, low, high):
+        return self.base.randint(path, self._full(shape), low, high).index_select(0, self.index)
 
 
 def uniform_sample_sphere(u1, u2):

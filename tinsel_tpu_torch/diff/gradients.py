@@ -57,19 +57,26 @@ def _unflat(values, *templates):
     return out
 
 
-def render_loss_and_grads(scene, cam, source, target, **opts):
-    """Returns (loss, (grad_materials, grad_camera)): the loss of
-    ``render_loss`` and its gradients as a ``MaterialsFlat`` and a
-    ``CameraParams`` (zero where a field does not reach the loss)."""
+def loss_and_grads(loss_fn, scene, cam):
+    """(loss, (grad_materials, grad_camera)) of ``loss_fn(scene, cam)``,
+    a scalar, with respect to ``scene.materials`` and ``cam``: the gradients
+    as a ``MaterialsFlat`` and a ``CameraParams`` (zero where a field does
+    not reach the loss)."""
     mats, cam_l = _leaves(scene.materials), _leaves(cam)
     with torch.enable_grad():
-        loss = render_loss(dataclasses.replace(scene, materials=mats), cam_l, source,
-                           target, **opts)
+        loss = loss_fn(dataclasses.replace(scene, materials=mats), cam_l)
         leaves = _flat(mats, cam_l)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     g_mats, g_cam = _unflat(grads, mats, cam_l)
     return loss.detach(), (g_mats, g_cam)
+
+
+def render_loss_and_grads(scene, cam, source, target, **opts):
+    """Returns (loss, (grad_materials, grad_camera)): the loss of
+    ``render_loss`` and its gradients (``loss_and_grads``)."""
+    return loss_and_grads(
+        lambda s, c: render_loss(s, c, source, target, **opts), scene, cam)
 
 
 def render_loss_and_grads_scan(scene, cam, source, target, n_chunks: int, **opts):

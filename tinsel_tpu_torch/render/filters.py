@@ -22,14 +22,16 @@ def _shift2d(a, dy: int, dx: int):
 
 
 def splat(sample_rgb, raster_x, raster_y, filter_type: str, filter_width: float,
-          filter_falloff: float):
+          filter_falloff: float, present=None):
     """Accumulate one sample-per-pixel pass into an (H, W, 4) RGBA buffer
     (premultiplied color, weight in alpha).
 
     sample_rgb: (S, H, W, 3) radiance of the sample generated at pixel
     (y, x) of pass s; raster_x / raster_y: (S, H, W) raster positions. The
     S passes are splatted independently and summed (the JAX package vmaps
-    ``splat`` over them)."""
+    ``splat`` over them). present: None, or an (S, H, W) bool mask of the
+    samples that exist; the others add neither color nor weight (a row
+    band's samples, ``render_pass(rows=...)``)."""
     s_, h, w = raster_x.shape
     fw = float(filter_width)
     k = int(np.floor(fw)) + 1
@@ -40,6 +42,7 @@ def splat(sample_rgb, raster_x, raster_y, filter_type: str, filter_width: float,
     rgb = sample_rgb.permute(1, 2, 0, 3)
     rx_all = raster_x.permute(1, 2, 0)
     ry_all = raster_y.permute(1, 2, 0)
+    present_all = None if present is None else present.permute(1, 2, 0)
 
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :, None]
     ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None, None]
@@ -54,6 +57,8 @@ def splat(sample_rgb, raster_x, raster_y, filter_type: str, filter_width: float,
             rx = _shift2d(rx_all, dy, dx)
             ry = _shift2d(ry_all, dy, dx)
             valid = (yy + dy >= 0) & (yy + dy < h) & (xx + dx >= 0) & (xx + dx < w)
+            if present_all is not None:
+                valid = valid & _shift2d(present_all, dy, dx)
             in_fp = (
                 (xs >= torch.floor(rx - fw))
                 & (xs <= torch.floor(rx + fw))

@@ -16,7 +16,7 @@ from functools import partial
 import torch
 
 from ..core.math import clamp_length, lerp
-from ..core.sampling import PathUniforms, Prefixed, best_candidate_2d
+from ..core.sampling import Lanes, PathUniforms, Prefixed, best_candidate_2d
 from ..device import resolve_device
 from ..scene.model import Options, SceneFlat
 from .camera import CameraParams, generate_rays
@@ -87,9 +87,17 @@ def render_pass(
     sampler: str = "random",
     rr_depth: int = 0,
     light_sampling: str = "all",
+    rows: tuple[int, int] | None = None,
 ):
     """One pass of ``samples_per_pass`` spp -> (H, W, 4) RGBA increment.
-    ``source``: the UniformSource of the pass (the JAX pass key)."""
+    ``source``: the UniformSource of the pass (the JAX pass key).
+
+    ``rows=(y0, y1)``: only the samples generated in image rows [y0, y1),
+    splatted at their own pixels into the full (H, W, 4) buffer (the
+    filter reaches rows outside the band); the passes of the row bands of
+    one image sum to the whole pass. Every draw is made at the whole pass's
+    shape and the band keeps its lanes (``core/sampling.py::Lanes``), so a
+    band's samples are the whole pass's (``parallel/sharding.py``)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     s = samples_per_pass
@@ -99,20 +107,44 @@ def render_pass(
     lens_uv = source.uniform((5,), (s, height, width, 2)).reshape(-1, 2)
     origins, dirs = generate_rays(cam, width, height, raster, lens_uv)
     times_flat = times.reshape(-1)
+    path_source = Prefixed(source, 2)
+    band_h = height
+    if rows is not None:
+        y0, y1 = rows
+        if not 0 <= y0 < y1 <= height:
+            raise ValueError(f"rows {rows} are not a band of {height} rows")
+        band_h = y1 - y0
+        lanes = torch.arange(s * height * width, device=origins.device)
+        lanes = lanes.reshape(s, height, width)[:, y0:y1].reshape(-1)
+        origins, dirs, times_flat = (x.index_select(0, lanes) for x in (origins, dirs, times_flat))
+        path_source = Lanes(path_source, lanes, s * height * width)
 
     if mode != "pathtrace":
         dbg = trace_normals if mode == "normals" else trace_complexity
-        rgb = dbg(scene, origins, dirs, times_flat).reshape(s, height, width, 3).mean(dim=0)
-        return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+        rgb = dbg(scene, origins, dirs, times_flat).reshape(s, band_h, width, 3).mean(dim=0)
+        out = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+        return out if rows is None else _place_rows(out, rows, height)
 
     radiance = path_trace(
-        scene, origins, dirs, times_flat, max_depth, Prefixed(source, 2),
+        scene, origins, dirs, times_flat, max_depth, path_source,
         rr_depth=rr_depth, light_sampling=light_sampling,
     )
     if math.isfinite(clamp):
         radiance = clamp_length(radiance, clamp)
-    sample_rgb = radiance.reshape(s, height, width, 3)
-    return splat(sample_rgb, rx, ry, filter_type, filter_width, filter_falloff)
+    sample_rgb = radiance.reshape(s, band_h, width, 3)
+    if rows is None:
+        return splat(sample_rgb, rx, ry, filter_type, filter_width, filter_falloff)
+    present = torch.zeros((s, height, width), dtype=torch.bool, device=rx.device)
+    present[:, y0:y1] = True
+    sample_rgb = _place_rows(sample_rgb.transpose(0, 1), rows, height).transpose(0, 1)
+    return splat(sample_rgb, rx, ry, filter_type, filter_width, filter_falloff, present)
+
+
+def _place_rows(x, rows, height: int):
+    """(y1 - y0, ...) rows -> (height, ...), zero outside [y0, y1)."""
+    y0, y1 = rows
+    pad = (0, 0) * (x.dim() - 1) + (y0, height - y1)
+    return torch.nn.functional.pad(x, pad)
 
 
 def make_render_pass(options: Options, samples_per_pass: int = 1):
