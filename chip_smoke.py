@@ -6,8 +6,9 @@
 Phases, each fatal on failure (exit code 1):
 
 1. the card: device name and ``nvidia-smi`` name and power limit;
-2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (nvcc, sm_90a)
-   and the BVH builder ``native/bvh_builder.cpp`` (g++), all at once;
+2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (``nlm.cu``,
+   ``bvh.cu``, ``sweep.cu``; nvcc, sm_90a) and the BVH builder
+   ``native/bvh_builder.cpp`` (g++), one compiler each, all at once;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path and a few more (K1 at 37x53, 512^2 and
    2160x3840, r = 1 and 2; K2 at 33x49, 512^2 and 2160x3840 at r = 2, and
@@ -19,8 +20,21 @@ Phases, each fatal on failure (exit code 1):
 5. the main path at full size: ``render`` of cornell 512x512 depth 4 at
    16 spp, ``resolve`` -> ``nlm_denoise`` (kernel K1) and ``render_aovs``
    -> ``nlm_guided_denoise`` (kernel K2), with the kernels' launch counts
-   reset just before and read just after; then the trace/shading split of
-   one render pass;
+   reset just before and read just after; the sweep kernels K5c / K5a
+   counted around the render alone, one launch for each trace_closest /
+   trace_any call (16 + 16); then the trace/shading split of one render
+   pass and its profile; K5's A/B in one run, a trace_closest and a
+   trace_any call of a Cornell pass (1M rays each) and one whole pass,
+   through a kept copy of the torch-op sweep (``old_trace_closest``,
+   ``old_trace_any``) and through K5c / K5a, in turns: device ms,
+   launches, wall ms, the pass's idle share; then the sweep kernels K5c (closest hit) and K5a
+   (occlusion) against their plain versions on captured inputs, every
+   lane equal and t bit for bit: Cornell's 4 + 4 calls of one 512x512
+   depth-4 pass, the first call of each of a pass of
+   ``scenes/motionblur.tin`` and ``scenes/veach_mis.json``, and 1M rays
+   in a scene of 2,000 spheres and 300 tiny instances whose record table
+   spans three shared-memory chunks; each timed by CUDA-graph replays,
+   with its share of the bound (``sweep_work``);
 6. the BVH walks K3 (closest hit) and K4 (any hit) against their plain
    versions on the card: the 524k-triangle sphere with 65,536 parallel
    rays, envmesh's first diffuse bounce and many_mesh's instance batch
@@ -49,10 +63,9 @@ Phases, each fatal on failure (exit code 1):
    counts reset just before and read just after, the same scene's
    complexity view (K7's count) and ``adaptive_render`` at a 16-spp
    budget; then one profiled pass of the probe scene;
-10. the trace as torch ops (what kernels K5 and K6 would replace): one
-    Cornell pass's trace_closest / trace_any calls (1M rays each) and one
-    many_mesh pass's shortlist rounds, replayed under the profiler:
-    device ms, launches and bound;
+10. the trace as torch ops (what kernel K6 would replace): one
+    many_mesh pass's shortlist rounds replayed under the profiler: device
+    ms, launches and bound;
 11. scene files: every scene file of the repository that needs no asset
     from outside it, loaded through the port (``load_tin`` /
     ``load_tungsten``, mesh cache cold), flattened on the card and
@@ -166,13 +179,16 @@ GRAD_TOL = 1e-3  # card vs CPU gradients at equal draws, normalized per leaf
 # the u + v add)
 NODE_BYTES, BLOCK_BYTES, RAY_BYTES, OFFSET_BYTES = 288, 768, 28, 8
 SLAB_OPS, TRI_OPS = 25, 59
-# the sweep's f32 operations (geometry/intersect.py): a sphere test with
-# its hit point and normal (q, two dots, the discriminant, root, both
-# roots ordered and picked, p and n: 45; 32 for an occlusion test), a
-# plane test (two dots, the division, the tests: 16), and merging one row
-# into the best hit (finite, two compares, two ands, the t, prim and
-# normal selects: 9)
-SPHERE_OPS, SPHERE_ANY_OPS, PLANE_OPS, MERGE_OPS = 45, 32, 16, 9
+# the sweep's f32 operations a test (csrc/sweep.cu, counted from its
+# expressions): a sphere test and its merge (q, two dots, the
+# discriminant, the root, both roots ordered and picked, the compares:
+# 37), its centre and scale lerped at the ray's time (12); a plane test
+# and its merge (two dots, the division, the compares: 21); an instance's
+# local ray (two inverse rotations: 75) and root-box test (40), its
+# transform interpolated (37); the winning triangle again by
+# intersect_ray_tri's formula (66)
+SPHERE_OPS, MOTION_SPHERE_OPS, PLANE_OPS = 37, 12, 21
+INSTANCE_OPS, MOTION_INSTANCE_OPS, REFIT_OPS = 115, 37, 66
 SCENE_FILE_SPP = 4
 # scene files whose meshes or probe lie outside the repository
 EXTERNAL_ASSET_SCENES = ("ajax", "ajaxenv", "sportscar", "table")
@@ -233,7 +249,7 @@ def ptxas_summary(log: str):
         if m:
             args = re.findall(r"Li(\d+)E", m.group(2))
             inst = f"{m.group(1)}<{','.join(args)}>"
-        m = re.search(r"Compiling entry function '\w*?\d(bvh_[a-z]+_kernel)E", line)
+        m = re.search(r"Compiling entry function '\w*?\d((?:bvh|sweep)_[a-z]+_kernel)E", line)
         if m:
             inst = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -446,16 +462,36 @@ def main_path(ops_nlm, dev):
     from tinsel_tpu_torch.render.renderer import render
     from tinsel_tpu_torch.scene.presets import cornell_scene
 
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+    from tinsel_tpu_torch.render import integrator, lights
+
     sc = cornell_scene(MAIN_W, MAIN_H, MAIN_DEPTH)
     # warm-up at 1 spp: CUDA context, allocator and library handles
     render(sc, spp=1, seed=1, device=dev)
     torch.cuda.synchronize()
 
-    ops_nlm.reset_launch_counts()
-    t0 = time.perf_counter()
-    accum = render(sc, spp=MAIN_SPP, seed=0, device=dev)
-    torch.cuda.synchronize()
-    t_render = time.perf_counter() - t0
+    # the render's trace calls, counted beside the sweep kernels' launches
+    traced = {"trace_closest": 0, "trace_any": 0}
+    orig = (integrator.trace_closest, lights.trace_any)
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            traced[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    integrator.trace_closest = counted("trace_closest", orig[0])
+    lights.trace_any = counted("trace_any", orig[1])
+    try:
+        ops_nlm.reset_launch_counts()
+        ops_sweep.reset_launch_counts()
+        t0 = time.perf_counter()
+        accum = render(sc, spp=MAIN_SPP, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        sweeps = dict(ops_sweep.launch_counts)
+    finally:
+        integrator.trace_closest, lights.trace_any = orig
     img = resolve(accum)
     den = ops_nlm.nlm_denoise(img)
     flat = sc.flatten(dev)
@@ -477,6 +513,10 @@ def main_path(ops_nlm, dev):
         fail(f"main path: the resolved image is black or blown out (mean {mean})")
     if min(launches.values()) < 1:
         fail(f"main path: a kernel was never launched: {launches}")
+    if (sweeps["sweep_closest"] != traced["trace_closest"] or sweeps["sweep_any"]
+            != traced["trace_any"] or min(sweeps.values()) < 1):
+        fail(f"main path: sweep launches {sweeps} for trace calls {traced}")
+    launches.update(sweeps)
 
     n_lights = sum(flat.prim_static[j].light_samples for j in flat.light_indices)
     rays = MAIN_W * MAIN_H * MAIN_DEPTH * (1 + n_lights) * MAIN_SPP
@@ -486,7 +526,7 @@ def main_path(ops_nlm, dev):
         rays_per_s=rays / t_render, ray_count="W*H*depth*(1+shadow rays) per spp",
         total_s_with_denoise=t_all, image_mean=mean,
         denoised_mean=float(den.mean()), guided_mean=float(gden.mean()),
-        launches=launches,
+        launches=launches, trace_calls=traced,
     ))
     return img, aov, launches
 
@@ -583,6 +623,193 @@ def main_inputs_phase(ops_nlm, plain, img, aov):
         nlm_guided_work(h, w, 2), f"main {h}x{w} r=2",
     )
     return k1, k2
+
+
+# ------------------------------------------------------ the sweep (K5c/K5a)
+
+SWEEP_STRESS_RAYS = 1 << 20
+
+
+def sweep_stress_scene(seed: int = 5):
+    """2,000 spheres (a quarter moving) and 300 instances of three tiny
+    meshes (a quad, a tetrahedron, a cube; a third moving) in a 20-unit
+    box between two planes: a record table of three shared-memory chunks
+    (tests/test_torch_sweep_cuda.py::synthetic_scene builds the same)."""
+    from tinsel_tpu_torch.scene import model as m
+
+    rng = np.random.default_rng(seed)
+    sc = m.Scene()
+    mat = m.Material(color=np.full(3, 0.5, np.float32))
+    ident = np.array([0, 0, 0, 1.0])
+
+    def tr(p, q, s):
+        return m.HostTransform(p=p.astype(np.float32), q=q.astype(np.float32), s=float(s))
+
+    for k in range(2000):
+        p = rng.uniform(-10, 10, 3)
+        end = tr(p + rng.normal(size=3) * 0.3, ident, 1.0) if k % 4 == 0 else None
+        sc.add_primitive(m.Primitive(type=m.SPHERE, radius=float(rng.uniform(0.05, 0.3)),
+                                     start_transform=tr(p, ident, 1.0), end_transform=end,
+                                     material=mat))
+    for y in (-12.0, 12.0):
+        sc.add_primitive(m.Primitive(type=m.PLANE, material=mat,
+                                     plane=np.array([0, 1, 0, -y], np.float32)))
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)], np.float32)
+    meshes = [
+        m.Mesh(np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32),
+               np.array([[0, 1, 2], [0, 2, 3]], np.int32)),
+        m.Mesh(np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]], np.float32),
+               np.array([[0, 1, 2], [0, 3, 1], [0, 2, 3], [1, 3, 2]], np.int32)),
+        m.Mesh(corners, np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                                  [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                                  [1, 5, 7], [1, 7, 3]], np.int32)),
+    ]
+    for k in range(300):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        start = tr(rng.uniform(-10, 10, 3), q, rng.uniform(0.3, 1.2))
+        end = None
+        if k % 3 == 0:
+            q2 = q + rng.normal(size=4) * 0.3
+            end = tr(start.p + rng.normal(size=3) * 0.5, q2 / np.linalg.norm(q2),
+                     start.s * rng.uniform(0.8, 1.25))
+        sc.add_primitive(m.Primitive(type=m.MESH, mesh=meshes[k % 3], material=mat,
+                                     start_transform=start, end_transform=end))
+    return sc
+
+
+def check_sweep(ops_sweep, name, flat, args, tag):
+    """K5c or K5a against its plain version on the same card inputs: the
+    winners (prim, tri) or the occlusion bit equal on every lane and t
+    equal bit for bit; timed by CUDA-graph replays; returns the record."""
+    from tinsel_tpu_torch.accel import sweep as plain
+
+    closest = name == "sweep_closest"
+    kernel = ops_sweep.sweep_closest_cuda if closest else ops_sweep.sweep_any_cuda
+    plain_fn = plain.sweep_closest if closest else plain.sweep_any
+    before = ops_sweep.launch_counts[name]
+    out = kernel(flat, *args)
+    torch.cuda.synchronize()
+    if ops_sweep.launch_counts[name] != before + 1:
+        fail(f"{name} {tag}: the wrapper did not count its launch")
+    stats = {}
+    ref = plain_fn(flat, *args, stats=stats)
+    rays = args[0].shape[0]
+    if closest:
+        (t, prim, tri), (t_ref, prim_ref, tri_ref) = out, ref
+        mismatched = int(((prim != prim_ref) | (tri != tri_ref)).sum())
+        t_bits = int((t.view(torch.int32) != t_ref.view(torch.int32)).sum())
+        fin = torch.isfinite(t_ref) & torch.isfinite(t)
+        err = float((t - t_ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+        hit_share = float((prim_ref >= 0).float().mean())
+    else:
+        mismatched = int((out != ref).sum())
+        t_bits, err = 0, float(mismatched > 0)
+        hit_share = float(ref.float().mean())
+    sets = copies(args, sum(a.numel() * a.element_size() for a in args))
+
+    def run(*a):
+        return kernel(flat, *a)
+
+    kernel_ms = device_ms(run, sets)
+    kernel_call_ms = call_ms(run, sets)
+    plain_ms = _event_ms(lambda: plain_fn(flat, *args), 1)
+    bound_ms, bound_by = bound(sweep_work(flat, stats, closest))
+    tab = ops_sweep.table(flat, args[0].device)
+    rec = dict(
+        kernel=name, shape=tag, rays=rays, hit_share=hit_share, mismatched=mismatched,
+        t_bits_differing=t_bits, max_abs_err=err, kernel_ms=kernel_ms,
+        kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / kernel_ms, mrays_per_s=rays / kernel_ms / 1e3,
+        tests_per_ray={k: v / rays for k, v in stats.items() if k != "rays"},
+        table_floats=int(tab.table.numel()), chunks=tab.n_chunks,
+        smem_bytes=4 * tab.smem_floats, launches=1, library_ms=None,
+    )
+    emit(rec)
+    if mismatched or t_bits:
+        fail(f"{name} {tag}: kernel differs from the plain version "
+             f"({mismatched} lanes, {t_bits} t bit patterns)")
+    return rec
+
+
+def sweep_args(args, closest: bool):
+    """A dispatcher call's (scene, o, d, times[, tmax]) as the kernels take
+    them: (scene, (o, d, times[, tmax]) contiguous f32 on the card)."""
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+
+    flat, o, d, times, *rest = args
+    o, d, times = ops_sweep._rays(o, d, times)
+    if closest:
+        return flat, (o, d, times)
+    tmax = torch.broadcast_to(rest[0].to(torch.float32), (o.shape[0],)).contiguous()
+    return flat, (o, d, times, tmax)
+
+
+def sweep_kernel_phase(dev):
+    """Phase 3b: K5c and K5a against their plain versions on captured
+    inputs: Cornell's 4 + 4 calls of one 512x512 depth-4 pass (4 spp, 1M
+    rays a call), the first call of each kind of one 1-spp pass of
+    scenes/motionblur.tin and scenes/veach_mis.json at their own sizes,
+    and 1M random rays in the 2,000-sphere, 300-instance scene of three
+    chunks. Returns {kernel: [records]}."""
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+    from tinsel_tpu_torch.scene.loaders.tin import load_tin
+    from tinsel_tpu_torch.scene.loaders.tungsten import load_tungsten
+    from tinsel_tpu_torch.scene.presets import cornell_scene
+
+    recs = {"sweep_closest": [], "sweep_any": []}
+
+    def captured(sc, spp):
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+        run = make_render_pass(sc.options, spp)
+        with torch.no_grad():
+            return capture_calls(((ops_sweep, "sweep_closest"), (ops_sweep, "sweep_any")),
+                                 lambda: run(flat, cam, PathUniforms(11, dev)))
+
+    sc = cornell_scene(MAIN_W, MAIN_H, MAIN_DEPTH)
+    calls = captured(sc, spp_per_pass(4, MAIN_W, MAIN_H))
+    for name in recs:
+        if len(calls[name]) != MAIN_DEPTH:
+            fail(f"cornell pass: {len(calls[name])} {name} calls, expected {MAIN_DEPTH}")
+        for i, (a, _) in enumerate(calls[name]):
+            flat, args = sweep_args(a, name == "sweep_closest")
+            recs[name].append(check_sweep(ops_sweep, name, flat, args,
+                                          f"cornell {MAIN_W}x{MAIN_H} bounce {i}"))
+        del calls[name][:]
+    for fname, load in (("motionblur.tin", load_tin), ("veach_mis.json", load_tungsten)):
+        sc = load(str(ROOT / "scenes" / fname))
+        o = sc.options
+        calls = captured(sc, 1)
+        flat, args = sweep_args(calls["sweep_closest"][0][0], True)
+        recs["sweep_closest"].append(check_sweep(ops_sweep, "sweep_closest", flat, args,
+                                                 f"{fname} {o.width}x{o.height} bounce 0"))
+        if calls["sweep_any"]:  # the pass's own shadow rays
+            flat, args = sweep_args(calls["sweep_any"][0][0], False)
+            tag = f"{fname} {o.width}x{o.height} bounce 0"
+        else:  # no light to sample: the camera rays, with segments of 0 to 6 or +inf
+            u = torch.from_numpy(np.random.default_rng(13).random(args[0].shape[0] * 2)
+                                 .astype(np.float32)).to(dev)
+            tmax = torch.where(u[0::2] < 0.2, float("inf"), 6.0 * u[1::2])
+            args = (*args, tmax.contiguous())
+            tag = f"{fname} {o.width}x{o.height} camera rays, tmax in [0, 6) or +inf"
+        recs["sweep_any"].append(check_sweep(ops_sweep, "sweep_any", flat, args, tag))
+        del calls
+    flat = sweep_stress_scene().flatten(dev)
+    rng = np.random.default_rng(12)
+    n = SWEEP_STRESS_RAYS
+    d = rng.normal(size=(n, 3))
+    ray = [rng.uniform(-11, 11, (n, 3)), d / np.linalg.norm(d, axis=-1, keepdims=True),
+           rng.random(n), np.where(rng.random(n) < 0.2, np.inf, rng.uniform(0, 6, n))]
+    ray = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in ray]
+    tag = "stress 2000 spheres 300 instances (3 chunks)"
+    recs["sweep_closest"].append(check_sweep(ops_sweep, "sweep_closest", flat, ray[:3], tag))
+    recs["sweep_any"].append(check_sweep(ops_sweep, "sweep_any", flat, ray, tag))
+    if ops_sweep.table(flat, dev).n_chunks != 3:
+        fail("the stress scene's table is not three chunks")
+    return recs
 
 
 # --------------------------------------------------------- BVH walks (K3/K4)
@@ -1379,7 +1606,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     return launches
 
 
-# ------------------------------------------ the trace as torch ops (K5, K6)
+# ---------------------------------- the trace: K5 against torch ops, K6
 
 
 def capture_calls(targets, run, outs=None):
@@ -1406,7 +1633,8 @@ def capture_calls(targets, run, outs=None):
 
 def profiled(run):
     """One run under the profiler: device busy ms and kernel launches in
-    all and of the walk kernels (bvh_*), and its wall ms there."""
+    all, of the walk kernels (bvh_*) and of the sweep kernels (sweep_*),
+    and its wall ms there."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1417,33 +1645,36 @@ def profiled(run):
         wall = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     walks = [ms for key, ms in events if "bvh_" in key]
+    sweeps = [ms for key, ms in events if "sweep_" in key]
     busy = sum(ms for _, ms in events)
     if busy <= 0:
         fail("the profiler recorded no device time")
     return dict(device_ms=busy, launches=len(events), walk_device_ms=sum(walks),
-                walk_launches=len(walks), profiled_wall_ms=wall)
+                walk_launches=len(walks), sweep_device_ms=sum(sweeps),
+                sweep_launches=len(sweeps), profiled_wall_ms=wall)
 
 
-def sweep_work(flat, rays: int, closest: bool):
-    """(bytes, f32 operations) of K5, the sweep over spheres, planes and
-    tiny meshes: each ray's origin, direction and time in (and its tmax
-    for an occlusion test), the hit (t, prim, normal) or the occlusion bit
-    out; per ray each sphere, plane and tiny-mesh triangle tested once,
-    and for the closest hit each row merged into the best."""
-    from tinsel_tpu_torch.scene.model import MESH, PLANE, SPHERE
+def sweep_work(flat, stats, closest: bool):
+    """(bytes, f32 operations) of K5c / K5a on one call's rays, counted
+    from the plain sweep on the same inputs (``stats``): each ray's origin
+    and direction in (its time where some row moves, its tmax for K5a),
+    (t, prim, tri) or the occlusion byte out, the record table once; each
+    test the plain version makes (K5a's up to a ray's first occluder, an
+    instance's triangles only where its root box passes, one
+    re-intersection for each ray a group's candidate comes from)."""
+    from tinsel_tpu_torch.accel.sweep import layout
+    from tinsel_tpu_torch.ops.sweep import pack_records
 
-    per_ray = 0
-    for ps in flat.prim_static:
-        if ps.type == SPHERE:
-            per_ray += SPHERE_OPS if closest else SPHERE_ANY_OPS
-        elif ps.type == PLANE:
-            per_ray += PLANE_OPS
-        elif ps.type == MESH and ps.mesh.num_tris <= 16:
-            per_ray += ps.mesh.real_tris * TRI_OPS
-        else:
-            continue
-        per_ray += MERGE_OPS if closest else 0
-    return rays * (48 if closest else 33), rays * per_ray
+    lay = layout(flat.prim_static)
+    motion = lay.sphere_motion or any(g.motion for g in lay.groups)
+    per_ray = 24 + (4 if motion else 0) + (12 if closest else 5)
+    nbytes = stats["rays"] * per_ray + 4 * pack_records(flat)[0].size
+    sphere = SPHERE_OPS + (MOTION_SPHERE_OPS if lay.sphere_motion else 0)
+    ops = (stats.get("sphere_tests", 0) * sphere + stats.get("plane_tests", 0) * PLANE_OPS
+           + stats.get("instance_tests", 0) * INSTANCE_OPS
+           + stats.get("moving_instance_tests", 0) * (INSTANCE_OPS + MOTION_INSTANCE_OPS)
+           + stats.get("tri_tests", 0) * TRI_OPS + stats.get("refits", 0) * REFIT_OPS)
+    return nbytes, ops
 
 
 def rounds_work(inst: int, rays: int, rounds: int, closest: bool):
@@ -1460,22 +1691,146 @@ def rounds_work(inst: int, rays: int, rounds: int, closest: bool):
     return 4 * inst * rays + 24 * walked * rays + lane * rays, rounds * INSTANCE_TOPK * inst * rays
 
 
-def trace_ops_phase(dev):
-    """K5 and K6 as the port runs them, torch ops (K6 around the walk
-    kernels), replayed on the arguments captured from one pass: K5 as
-    trace_closest / trace_any of a Cornell pass (512x512, 4 spp: 1M rays a
-    call; 5 planes, 2 spheres and the 2-triangle light), bounce 0 alone
-    and the whole pass; K6 as the shortlist rounds of a many_mesh pass
-    (48 meshes, 512x512, 4 spp, depth 2), the first call of each form and
-    the whole pass, beside the whole trace_closest call around the first.
-    Device ms and launches from the profiler, the call's
-    ms under CUDA events, and the bound of the work (``sweep_work``,
-    ``rounds_work``)."""
+def old_trace_closest(scene, origins, dirs, times):
+    """trace_closest as the port ran it before kernel K5c (a copy kept for
+    phase 10's A/B, scenes without big meshes): spheres and planes as
+    (rows, rays) torch ops merged row by row, each tiny group swept by the
+    brute test and its winner re-intersected."""
+    from tinsel_tpu_torch.accel.sweep import mesh_partition
+    from tinsel_tpu_torch.accel.traverse import intersect_mesh
+    from tinsel_tpu_torch.core.math import dot, face_forward, quat_rotate, safe_normalize
+    from tinsel_tpu_torch.geometry.intersect import (
+        INF, intersect_ray_plane, intersect_ray_sphere, intersect_ray_tri)
+    from tinsel_tpu_torch.render.trace import (
+        Hit, _instance_box_entry, _local_rays, _offsets, _prim_transforms_batched)
+
+    r, dev = origins.shape[0], origins.device
+    best_t = torch.full((r,), INF, device=dev)
+    best_prim = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_n = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    tiny_groups, big, spheres, planes = mesh_partition(scene.prim_static)
+    if big:
+        fail("old_trace_closest: the kept copy has no big-mesh batch")
+
+    def merge_rows(t_rows, n_rows, ids):
+        nonlocal best_t, best_prim, best_n
+        for row, pid in enumerate(ids):
+            t_r = t_rows[row]
+            closer = torch.isfinite(t_r) & (t_r > 0.0) & (t_r < best_t)
+            best_t = torch.where(closer, t_r, best_t)
+            best_prim = torch.where(closer, pid, best_prim)
+            best_n = torch.where(closer[..., None], n_rows[row], best_n)
+
+    if spheres:
+        sel = torch.as_tensor(spheres, dtype=torch.long, device=dev)
+        tr_b = _prim_transforms_batched(scene, spheres, times)
+        hit, t, n = intersect_ray_sphere(tr_b.p, scene.prims.radius[sel][:, None] * tr_b.s,
+                                         origins[None, :, :], dirs[None, :, :])
+        merge_rows(torch.where(hit & (t > 0.0), t, INF), n, spheres)
+    if planes:
+        sel = torch.as_tensor(planes, dtype=torch.long, device=dev)
+        hit, t, n = intersect_ray_plane(scene.prims.plane[sel][:, None, :],
+                                        origins[None, :, :], dirs[None, :, :])
+        merge_rows(torch.where(hit & (t > 0.0), t, INF), n, planes)
+    for idxs in tiny_groups.values():
+        handles = [scene.prim_static[i].mesh for i in idxs]
+        n_inst = len(idxs)
+        tr_b, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
+        inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
+        _, toff, _ = _offsets(handles, dev)
+        with torch.no_grad():
+            tmax_b = torch.broadcast_to(best_t[None, :], (n_inst, r))
+            may_hit, _ = _instance_box_entry(handles, o_l, d_l, tmax_b)
+            tmax_i = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
+            t_f, tri_f = intersect_mesh(
+                scene.pool, handles[0].node_offset, handles[0].tri_offset,
+                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tmax_i,
+                num_tris=handles[0].real_tris)
+            t_i, tri_i = t_f.reshape(n_inst, r), tri_f.reshape(n_inst, r)
+            t_min = t_i.min(dim=0).values
+            inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
+            inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
+            tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
+            hit = torch.isfinite(t_min) & (t_min < best_t)
+        onehot = (inst_ids == inst[None, :]).to(torch.float32)
+        ow = (onehot[..., None] * o_l).sum(dim=0)
+        dw = (onehot[..., None] * d_l).sum(dim=0)
+        qw = (onehot[..., None] * tr_b.q).sum(dim=0)
+        gt = toff.long()[inst] + torch.clamp(tri, min=0).long()
+        v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
+        n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
+        _, t, u, v, w, n_geo = intersect_ray_tri(v0, v1, v2, ow, dw)
+        t = torch.where(hit & (tri >= 0), t, INF)
+        ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
+        ns = ns * torch.where(dot(ns, n_geo) < 0.0, -1.0, 1.0)[..., None]
+        n = safe_normalize(quat_rotate(qw, ns), fallback=safe_normalize(quat_rotate(qw, n_geo)))
+        prim_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)[inst]
+        closer = hit & (t > 0.0) & (t < best_t)
+        best_t = torch.where(closer, t, best_t)
+        best_prim = torch.where(closer, prim_ids, best_prim)
+        best_n = torch.where(closer[..., None], n, best_n)
+    return Hit(t=best_t, prim=best_prim, normal=face_forward(best_n, -dirs))
+
+
+@torch.no_grad()
+def old_trace_any(scene, origins, dirs, times, tmax):
+    """trace_any as the port ran it before kernel K5a (the kept copy, as
+    ``old_trace_closest``)."""
+    from tinsel_tpu_torch.accel.sweep import mesh_partition
+    from tinsel_tpu_torch.accel.traverse import intersect_mesh_any
+    from tinsel_tpu_torch.geometry.intersect import intersect_ray_plane, intersect_ray_sphere
+    from tinsel_tpu_torch.render.trace import (
+        _instance_box_entry, _local_rays, _prim_transforms_batched)
+
+    r, dev = origins.shape[0], origins.device
+    occ = torch.zeros((r,), dtype=torch.bool, device=dev)
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
+    tiny_groups, big, spheres, planes = mesh_partition(scene.prim_static)
+    if big:
+        fail("old_trace_any: the kept copy has no big-mesh batch")
+    if spheres:
+        sel = torch.as_tensor(spheres, dtype=torch.long, device=dev)
+        tr_b = _prim_transforms_batched(scene, spheres, times)
+        hit, t, _ = intersect_ray_sphere(tr_b.p, scene.prims.radius[sel][:, None] * tr_b.s,
+                                         origins[None, :, :], dirs[None, :, :])
+        occ = occ | (hit & (t > 0.0) & (t < tmax[None, :])).any(dim=0)
+    if planes:
+        sel = torch.as_tensor(planes, dtype=torch.long, device=dev)
+        hit, t, _ = intersect_ray_plane(scene.prims.plane[sel][:, None, :],
+                                        origins[None, :, :], dirs[None, :, :])
+        occ = occ | (hit & (t > 0.0) & (t < tmax[None, :])).any(dim=0)
+    for idxs in tiny_groups.values():
+        handles = [scene.prim_static[i].mesh for i in idxs]
+        n_inst = len(idxs)
+        _, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
+        tmax_r = torch.where(occ, 0.0, tmax)
+        tmax_b = torch.broadcast_to(tmax_r[None, :], (n_inst, r))
+        may_hit, _ = _instance_box_entry(handles, o_l, d_l, tmax_b)
+        tm = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
+        oc = intersect_mesh_any(scene.pool, handles[0].node_offset, handles[0].tri_offset,
+                                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tm,
+                                num_tris=handles[0].real_tris)
+        occ = occ | oc.reshape(n_inst, r).any(dim=0)
+    return occ
+
+
+def trace_ab_phase(dev):
+    """K5's A/B in one run (item 5 of the module docstring): a
+    trace_closest and a trace_any call of a Cornell pass (512x512, 4 spp:
+    1M rays a call; 5 planes, 2 spheres and the 2-triangle light) through
+    the kept torch-op copy (``old_trace_closest`` / ``old_trace_any``) and
+    through kernels K5c / K5a, in turns (old, new, new, old): device ms and
+    launches from the profiler, the call's wall ms under CUDA events, the
+    sweep kernels' launches as their wrappers count them; then one whole
+    Cornell pass each way, its launches and idle share (profiled). Runs
+    right after the main path's profile: in a process that has run the
+    later phases the profiler has been seen to record no sweep kernel."""
     from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
     from tinsel_tpu_torch.render import integrator, lights, trace
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
-    from tinsel_tpu_torch.scene.presets import cornell_scene, many_mesh_scene
+    from tinsel_tpu_torch.scene.presets import cornell_scene
 
     def one_pass(sc):
         flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
@@ -1484,36 +1839,94 @@ def trace_ops_phase(dev):
             make_render_pass(sc.options, spp)(flat, cam, PathUniforms(9, dev))
         return flat
 
-    def record(what, fn, calls, work, extra=None):
-        first = profiled(lambda: fn(*calls[0][0], **calls[0][1]))
-        whole = profiled(lambda: [fn(*a, **k) for a, k in calls])
+    def timed(fn, args, kw):
+        before = dict(ops_sweep.launch_counts)
+        prof = profiled(lambda: fn(*args, **kw))
+        sweeps = {k: ops_sweep.launch_counts[k] - before[k] for k in before}
         with torch.no_grad():
-            call_ms = _event_ms(lambda: fn(*calls[0][0], **calls[0][1]), 1)
-        bound_ms, bound_by = bound(work(first))
-        own_ms = first["device_ms"] - first["walk_device_ms"]
-        rec = dict(phase="trace_ops", what=what, first_call=first, call_ms=call_ms,
-                   own_device_ms=own_ms, own_launches=first["launches"] - first["walk_launches"],
-                   bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / own_ms,
-                   calls_per_pass=len(calls), pass_device_ms=whole["device_ms"],
-                   pass_launches=whole["launches"],
-                   pass_own_device_ms=whole["device_ms"] - whole["walk_device_ms"],
-                   pass_own_launches=whole["launches"] - whole["walk_launches"], **(extra or {}))
-        emit(rec)
-        return rec
+            fn(*args, **kw)
+            wall = _event_ms(lambda: fn(*args, **kw), 1)
+        return dict(device_ms=prof["device_ms"], launches=prof["launches"],
+                    sweep_launches_counted=sweeps, sweep_device_ms=prof["sweep_device_ms"],
+                    wall_ms=wall, profiled_wall_ms=prof["profiled_wall_ms"])
 
     recs = {}
     sc = cornell_scene(BIG_W, BIG_H, 4)
     box = {}
     calls = capture_calls(((integrator, "trace_closest"), (lights, "trace_any")),
                           lambda: box.setdefault("flat", one_pass(sc)))
-    flat = box["flat"]
-    for name, fn, closest in (("trace_closest", trace.trace_closest, True),
-                              ("trace_any", trace.trace_any, False)):
-        rays = calls[name][0][0][1].shape[0]
-        recs[f"K5 {name}"] = record(
-            f"K5 cornell {name}", fn, calls[name],
-            lambda _first, r=rays, c=closest: sweep_work(flat, r, c), dict(rays=rays))
+    for name, old, new in (("trace_closest", old_trace_closest, trace.trace_closest),
+                           ("trace_any", old_trace_any, trace.trace_any)):
+        args, kw = calls[name][1 if name == "trace_closest" else 0]
+        with torch.no_grad():
+            a, b = old(*args, **kw), new(*args, **kw)
+        if name == "trace_closest":
+            same = float((a.prim == b.prim).float().mean())
+            close = torch.isclose(a.t, b.t, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            t_share = float((close | (a.prim != b.prim)).float().mean())
+            fin = torch.isfinite(a.t) & torch.isfinite(b.t)
+            dt = float((a.t - b.t)[fin].abs().max())
+        else:
+            same, t_share, dt = float((a == b).float().mean()), 1.0, 0.0
+        runs = [("torch ops", timed(old, args, kw)), ("K5", timed(new, args, kw)),
+                ("K5", timed(new, args, kw)), ("torch ops", timed(old, args, kw))]
+        rec = dict(phase="trace_ops", what=f"K5 A/B cornell {name}",
+                   call="bounce 1" if name == "trace_closest" else "bounce 0",
+                   rays=args[1].shape[0], runs=runs, winners_equal_share=same,
+                   t_within_tol_share=t_share, max_abs_dt=dt, calls_per_pass=len(calls[name]))
+        emit(rec)
+        recs[f"K5 {name}"] = rec
+        # the two paths round differently (the copy sums its dot products
+        # with torch.sum, the sweep component by component): a winner may
+        # flip at an exact tie and a grazing sphere hit's t moves by its
+        # conditioning, on a few lanes in 10,000 at most
+        if same < 0.9999 or t_share < 0.9999:
+            fail(f"K5 A/B {name}: the two paths disagree ({same}, {t_share}, {dt})")
+        if any(r["sweep_launches_counted"] != dict(sweep_closest=int(name == "trace_closest"),
+                                                    sweep_any=int(name == "trace_any"))
+               for how, r in runs if how == "K5"):
+            fail(f"K5 A/B {name}: a call through K5 did not launch its sweep kernel once")
+    del calls
 
+    def pass_record(how):
+        if how == "torch ops":
+            integrator.trace_closest, lights.trace_any = old_trace_closest, old_trace_any
+        try:
+            prof = profiled(lambda: one_pass(sc))
+        finally:
+            integrator.trace_closest, lights.trace_any = trace.trace_closest, trace.trace_any
+        return how, dict(prof, idle_share=1.0 - prof["device_ms"] / prof["profiled_wall_ms"])
+
+    one_pass(sc)
+    runs = [pass_record(h) for h in ("K5", "torch ops", "torch ops", "K5")]
+    rec = dict(phase="trace_ops", what="K5 A/B one cornell pass (512x512, 4 spp, depth 4)",
+               runs=runs)
+    emit(rec)
+    recs["K5 pass"] = rec
+    return recs
+
+
+def trace_ops_phase(dev):
+    """Phase 10. K6 as the port runs it, torch ops around the walk kernels:
+    the shortlist rounds of a many_mesh pass (48 meshes, 512x512, 4 spp,
+    depth 2), the first call of each form and the whole pass, beside the
+    whole trace_closest call around the first, with the bound of the work
+    (``rounds_work``): device ms and launches from the profiler, the
+    call's ms under CUDA events."""
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.render import integrator, trace
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+    from tinsel_tpu_torch.scene.presets import many_mesh_scene
+
+    def one_pass(sc):
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+        spp = spp_per_pass(4)
+        with torch.no_grad():
+            make_render_pass(sc.options, spp)(flat, cam, PathUniforms(9, dev))
+        return flat
+
+    recs = {}
     sc = many_mesh_scene(48, BIG_W, BIG_H, 2)
     calls = capture_calls(((trace, "_instance_rounds"), (trace, "_instance_rounds_any"),
                            (integrator, "trace_closest")), lambda: one_pass(sc))
@@ -1525,12 +1938,27 @@ def trace_ops_phase(dev):
               rays=args[1].shape[0], **whole))
     del args, kw
     for name, closest in (("_instance_rounds", True), ("_instance_rounds_any", False)):
-        o_l = calls[name][0][0][1]
+        calls_n = calls[name]
+        o_l = calls_n[0][0][1]
         inst, rays = o_l.shape[:2]
-        recs[f"K6 {name}"] = record(
-            f"K6 many_mesh {name}", getattr(trace, name), calls[name],
-            lambda first, i=inst, r=rays, c=closest: rounds_work(i, r, first["walk_launches"], c),
-            dict(instances=inst, rays=rays))
+        fn = getattr(trace, name)
+        first = profiled(lambda: fn(*calls_n[0][0], **calls_n[0][1]))
+        whole = profiled(lambda: [fn(*a, **k) for a, k in calls_n])
+        with torch.no_grad():
+            call_ms_ = _event_ms(lambda: fn(*calls_n[0][0], **calls_n[0][1]), 1)
+        bound_ms, bound_by = bound(rounds_work(inst, rays, first["walk_launches"], closest))
+        own_ms = first["device_ms"] - first["walk_device_ms"]
+        rec = dict(phase="trace_ops", what=f"K6 many_mesh {name}", first_call=first,
+                   call_ms=call_ms_, own_device_ms=own_ms,
+                   own_launches=first["launches"] - first["walk_launches"],
+                   bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / own_ms,
+                   calls_per_pass=len(calls_n), pass_device_ms=whole["device_ms"],
+                   pass_launches=whole["launches"],
+                   pass_own_device_ms=whole["device_ms"] - whole["walk_device_ms"],
+                   pass_own_launches=whole["launches"] - whole["walk_launches"],
+                   instances=inst, rays=rays)
+        emit(rec)
+        recs[f"K6 {name}"] = rec
     return recs
 
 
@@ -1840,17 +2268,23 @@ def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
 
 # ----------------------------------------------------------- entry points
 
-KERNEL_NAMES = ("nlm_filter", "nlm_guided", "bvh_closest", "bvh_any", "bvh_steps")
+KERNEL_NAMES = ("nlm_filter", "nlm_guided", "bvh_closest", "bvh_any", "bvh_steps",
+                "sweep_closest", "sweep_any")
 CLI_LINE = re.compile(r"(\d+) spp in ([\d.]+)s \(([\d.]+) ms/spp, ([\d.]+) Mpaths/s\)")
 
 
 def reset_counts(ops_nlm, ops_bvh):
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+
     ops_nlm.reset_launch_counts()
     ops_bvh.reset_launch_counts()
+    ops_sweep.reset_launch_counts()
 
 
 def read_counts(ops_nlm, ops_bvh) -> dict:
-    counts = {**ops_nlm.launch_counts, **ops_bvh.launch_counts}
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+
+    counts = {**ops_nlm.launch_counts, **ops_bvh.launch_counts, **ops_sweep.launch_counts}
     return {k: counts[k] for k in KERNEL_NAMES}
 
 
@@ -2659,6 +3093,8 @@ def main():
     k1, k2 = main_inputs_phase(ops_nlm, plain, img, aov)
     trace_split_phase(dev)
     profile_phase(dev)
+    trace_ab_phase(dev)
+    sweeps = sweep_kernel_phase(dev)
 
     from tinsel_tpu_torch.ops import bvh as ops_bvh
 
@@ -2689,6 +3125,7 @@ def main():
         launches[k] = (big_launches[k] + probe_launches[k] + file_launches[k]
                        + ajax_launches[k])
     launches["bvh_steps"] = probe_launches["bvh_steps"]
+    # K5c/K5a: the main path's frame (phase 5), then the entry points
     for k in KERNEL_NAMES:
         launches[k] += entry_launches[k]
     for k in mg_launches:  # the ranks' sharded renders
@@ -2736,6 +3173,22 @@ def main():
         ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
         bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
     ))
+    # K5c/K5a at the main path's own inputs: Cornell's first-bounce calls
+    # (1M rays each); the error is the worst over every input
+    for key, replaces in (
+        ("sweep_closest", "tinsel_tpu/render/trace.py:388-424 sphere/plane rows and merge + "
+                          "tinsel_tpu/accel/traverse.py:981 _intersect_mesh_brute"),
+        ("sweep_any", "tinsel_tpu/render/trace.py:576 trace_any sphere/plane rows + "
+                      "tinsel_tpu/accel/traverse.py:981 _intersect_mesh_brute"),
+    ):
+        rec = next(r for r in sweeps[key] if r["shape"].endswith("bounce 1"))
+        table.append(dict(
+            name=key, route="cuda", source="tinsel_tpu_torch/csrc/sweep.cu",
+            replaces=replaces, launches=launches[key],
+            max_abs_err=max(r["max_abs_err"] for r in sweeps[key]),
+            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
+        ))
     print(smi, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,25 +1,28 @@
 """Scene-level closest-hit and shadow tracing (port of
 ``tinsel_tpu/render/trace.py``).
 
-Every ray tests every primitive with masks. Spheres and planes are batched
-by type as (P, R) tests. Mesh primitives whose triangles fit one 16-slot
-block are grouped by pool segment and swept by the brute test; every other
-mesh primitive joins ONE batch of (instance, ray) lanes with per-lane
-sub-BVH offsets, walked by kernels K3 (closest) and K4 (any hit) through
-``ops/bvh.py`` after a root-box cull. Above ``INSTANCE_TOPK_MIN`` big
-instances the batch walks only the ``INSTANCE_TOPK`` nearest-entry
-instances per ray per round, repeating while some ray's next unvisited
-box entry still beats its best hit (``_instance_rounds``). Rows merge in
-the JAX order (spheres, planes, tiny groups, the big batch) with a strict
-``<``, so ties keep the earlier primitive, and the final normal is
-face-forwarded against the ray.
+Two searches, each without gradient (the JAX package's ``stop_gradient``):
 
-The search runs without gradient (the JAX package's ``stop_gradient``);
-the winning triangle is then re-intersected with grad enabled, with its
-vertices and normals detached (``MESH_VERTEX_GRADS = False`` there), so
-gradients reach the ray and the instance transform. The sphere, plane and
-tiny-mesh sweeps run as torch ops; whether they become the fused kernel K5
-is decided by measurement (PERF.md).
+* spheres, planes and the tiny meshes (at most 16 triangles, grouped by
+  pool segment) are swept by ``ops/sweep.py``: kernels K5c (closest hit)
+  and K5a (occlusion) of ``csrc/sweep.cu`` on the card, their plain
+  versions ``accel/sweep.py`` on the CPU, one call each;
+* every other mesh primitive joins ONE batch of (instance, ray) lanes with
+  per-lane sub-BVH offsets, walked by kernels K3 (closest) and K4 (any
+  hit) through ``ops/bvh.py`` after a root-box cull, with the sweep's t as
+  its bound. Above ``INSTANCE_TOPK_MIN`` big instances the batch walks
+  only the ``INSTANCE_TOPK`` nearest-entry instances per ray per round,
+  repeating while some ray's next unvisited box entry still beats its best
+  hit (``_instance_rounds``).
+
+Hits merge in the JAX order (spheres, planes, tiny groups, the big batch)
+with a strict ``<``, so ties keep the earlier primitive. Each search's
+winner is then intersected again with grad enabled (``_refit`` for the
+sweep's, with its formulas, so t keeps its bits; the big batch's
+triangle as the JAX package does), vertices and normals detached
+(``MESH_VERTEX_GRADS = False`` there), so gradients reach the ray and the
+primitive's transform, radius or plane. The final normal is
+face-forwarded against the ray.
 """
 
 from __future__ import annotations
@@ -28,8 +31,15 @@ import dataclasses
 
 import torch
 
-from ..accel.build import BLOCK_SIZE
-from ..accel.traverse import intersect_mesh, intersect_mesh_any
+from ..accel.sweep import (
+    layout,
+    lerp_transform,
+    local_ray,
+    plane_hit,
+    ray_tri,
+    sphere_hit,
+    sphere_normal,
+)
 from ..core.math import (
     Transform,
     dot,
@@ -40,14 +50,10 @@ from ..core.math import (
     quat_rotate,
     safe_normalize,
 )
-from ..geometry.intersect import (
-    INF,
-    intersect_ray_plane,
-    intersect_ray_sphere,
-    intersect_ray_tri,
-)
+from ..geometry.intersect import INF, intersect_ray_tri
 from ..ops import bvh as ops_bvh
-from ..scene.model import MESH, PLANE, SPHERE, SceneFlat
+from ..ops import sweep as ops_sweep
+from ..scene.model import MESH, PLANE, SPHERE, SceneFlat, _GatherRows
 
 INSTANCE_TOPK = 4  # candidate instances walked per shortlist round
 INSTANCE_TOPK_MIN = 12  # shortlist rounds engage above this instance count
@@ -92,24 +98,6 @@ def _prim_transforms_batched(scene: SceneFlat, idxs, times):
     return interpolate_transform(start, end, times[None, :])
 
 
-def _mesh_partition(scene: SceneFlat):
-    """(tiny groups keyed by pool segment, big-mesh prims, spheres, planes)."""
-    tiny_groups: dict = {}
-    big, spheres, planes = [], [], []
-    for i, ps in enumerate(scene.prim_static):
-        if ps.type == MESH:
-            if ps.mesh.num_tris <= BLOCK_SIZE:
-                k = (ps.mesh.node_offset, ps.mesh.tri_offset)
-                tiny_groups.setdefault(k, []).append(i)
-            else:
-                big.append(i)
-        elif ps.type == SPHERE:
-            spheres.append(i)
-        elif ps.type == PLANE:
-            planes.append(i)
-    return tiny_groups, big, spheres, planes
-
-
 def _instance_box_entry(handles, o_l, d_l, tmax_b):
     """Per-instance local-space root-AABB slab test. o_l/d_l: (I, R, 3).
     Returns ((I, R) 'may hit', (I, R) entry distance, +inf where missed).
@@ -139,10 +127,6 @@ def _local_rays(scene, idxs, origins, dirs, times):
     o_l = inverse_transform_point(tr_b, origins[None, :, :])
     d_l = inverse_transform_vector(tr_b, dirs[None, :, :])
     return tr_b, o_l, d_l
-
-
-def _batches(tiny_groups, big):
-    return [(idxs, True) for idxs in tiny_groups.values()] + ([(big, False)] if big else [])
 
 
 def _offsets(handles, dev):
@@ -227,45 +211,79 @@ def _instance_rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots
     return occ
 
 
+def _refit(scene: SceneFlat, lay, origins, dirs, times, prim, tri):
+    """(t, normal) of each ray's sweep winner, taken again under autograd
+    with the sweep's own formulas (``accel/sweep.py``), so t equals the
+    sweep's bit for bit: the winning sphere at the ray's time, the winning
+    plane, or the winning tiny-mesh triangle in its instance's frame
+    (vertices and normals detached). A miss gives (+inf, 0). The rows come
+    from ``_GatherRows``, whose backward is a one-hot matmul, so gradient
+    reaches only the winning row, as the JAX package's where-merge passes
+    it."""
+    r = origins.shape[0]
+    dev = origins.device
+    found = prim >= 0
+    idx = torch.clamp(prim, min=0).long()
+    kind = scene.prim_type[idx]
+    pr = scene.prims
+    motion = any(lay.batch_motion)
+    # one gather of the rows the refit reads, side by side: start p, q, s,
+    # radius, plane (then end p, q, s where some batch moves)
+    cols = [pr.start_p, pr.start_q, pr.start_s[:, None], pr.radius[:, None], pr.plane]
+    if motion:
+        cols += [pr.end_p, pr.end_q, pr.end_s[:, None]]
+    (rows,) = _GatherRows.apply(idx, torch.cat(cols, dim=1))
+    c = rows.unbind(-1)
+    p, q, s, rad, pl = c[0:3], c[3:7], c[7], c[8], c[9:13]
+    if motion:  # the batch's transforms are interpolated
+        moving = torch.tensor(lay.batch_motion, device=dev)[idx]
+        p2, q2, s2 = lerp_transform(p, q, s, c[13:16], c[16:20], c[20], times)
+        p = tuple(torch.where(moving, a, b) for a, b in zip(p2, p))
+        q = tuple(torch.where(moving, a, b) for a, b in zip(q2, q))
+        s = torch.where(moving, s2, s)
+    o, d = origins.unbind(-1), dirs.unbind(-1)
+    t = torch.full((r,), INF, device=dev)
+    n = torch.zeros((r, 3), device=dev)
+    if lay.spheres:
+        hit, t_s = sphere_hit(p, rad * s, o, d)
+        is_s = kind == SPHERE
+        t = torch.where(is_s, t_s, t)
+        n = torch.where(is_s[:, None], sphere_normal(p, rad * s, o, d, hit, t_s), n)
+    if lay.planes:
+        _, t_p = plane_hit(pl, o, d)
+        is_p = kind == PLANE
+        t = torch.where(is_p, t_p, t)
+        n = torch.where(is_p[:, None], torch.stack(pl[:3], -1), n)
+    if lay.groups:
+        ow, dw = local_ray(p, q, s, o, d)
+        gt = torch.clamp(tri, min=0).long()
+        v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
+        n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
+        _, t_m, u, v, w, n_geo = ray_tri(v0.unbind(-1), v1.unbind(-1), v2.unbind(-1), ow, dw)
+        n_geo = torch.stack(n_geo, -1)
+        ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
+        # keep the smooth normal on the geometric side
+        ns = ns * torch.where(dot(ns, n_geo) < 0.0, -1.0, 1.0)[..., None]
+        qw = torch.stack(q, -1)
+        n_m = safe_normalize(quat_rotate(qw, ns), fallback=safe_normalize(quat_rotate(qw, n_geo)))
+        is_m = (kind == MESH) & (tri >= 0)
+        t = torch.where(is_m, t_m, t)
+        n = torch.where(is_m[:, None], n_m, n)
+    return torch.where(found, t, INF), torch.where(found[:, None], n, 0.0)
+
+
 def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     """Closest hit over all primitives. origins/dirs (R, 3), times (R,)."""
     r = origins.shape[0]
     dev = origins.device
-    best_t = torch.full((r,), INF, device=dev)
-    best_prim = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    best_n = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    lay = layout(scene.prim_static)
+    # the discrete search (kernel K5c on the card), then the winner again
+    # under autograd
+    _, best_prim, tri = ops_sweep.sweep_closest(scene, origins, dirs, times)
+    best_t, best_n = _refit(scene, lay, origins, dirs, times, best_prim, tri)
 
-    tiny_groups, big, spheres, planes = _mesh_partition(scene)
-
-    def merge_rows(t_rows, n_rows, ids):
-        nonlocal best_t, best_prim, best_n
-        for row, pid in enumerate(ids):
-            t_r = t_rows[row]
-            closer = torch.isfinite(t_r) & (t_r > 0.0) & (t_r < best_t)
-            best_t = torch.where(closer, t_r, best_t)
-            best_prim = torch.where(closer, pid, best_prim)
-            best_n = torch.where(closer[..., None], n_rows[row], best_n)
-
-    if spheres:
-        sel = torch.as_tensor(spheres, dtype=torch.long, device=dev)
-        tr_b = _prim_transforms_batched(scene, spheres, times)  # (S, R)
-        hit, t, n = intersect_ray_sphere(
-            tr_b.p,
-            scene.prims.radius[sel][:, None] * tr_b.s,
-            origins[None, :, :],
-            dirs[None, :, :],
-        )
-        merge_rows(torch.where(hit & (t > 0.0), t, INF), n, spheres)
-
-    if planes:
-        sel = torch.as_tensor(planes, dtype=torch.long, device=dev)
-        hit, t, n = intersect_ray_plane(
-            scene.prims.plane[sel][:, None, :], origins[None, :, :],
-            dirs[None, :, :],
-        )
-        merge_rows(torch.where(hit & (t > 0.0), t, INF), n, planes)
-
-    for idxs, is_tiny in _batches(tiny_groups, big):
+    if lay.big:
+        idxs = list(lay.big)
         handles = [scene.prim_static[i].mesh for i in idxs]
         n_inst = len(idxs)
         tr_b, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
@@ -278,17 +296,11 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
             may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
             tmax_i = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
             o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
-            if is_tiny or n_inst <= INSTANCE_TOPK_MIN:
-                if is_tiny:  # one shared segment: the brute sweep
-                    t_f, tri_f = intersect_mesh(
-                        scene.pool, handles[0].node_offset, handles[0].tri_offset,
-                        o_f, d_f, tmax_i, num_tris=handles[0].real_tris,
-                    )
-                else:
-                    t_f, tri_f = ops_bvh.closest_hit(
-                        scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
-                        o_f, d_f, tmax_i, slots,
-                    )
+            if n_inst <= INSTANCE_TOPK_MIN:
+                t_f, tri_f = ops_bvh.closest_hit(
+                    scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
+                    o_f, d_f, tmax_i, slots,
+                )
                 # local t equals world t (uniform scale folds into |d_l|)
                 t_i = t_f.reshape(n_inst, r)
                 tri_i = tri_f.reshape(n_inst, r)
@@ -336,51 +348,28 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
     """Occlusion query: any primitive hit with 0 < t < tmax. (R,) bool."""
     r = origins.shape[0]
     dev = origins.device
-    occ = torch.zeros((r,), dtype=torch.bool, device=dev)
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
+    tmax = torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32, device=dev), (r,))
+    # spheres, planes and tiny meshes: kernel K5a on the card
+    occ = ops_sweep.sweep_any(scene, origins, dirs, times, tmax)
 
-    tiny_groups, big, spheres, planes = _mesh_partition(scene)
-    if spheres:
-        sel = torch.as_tensor(spheres, dtype=torch.long, device=dev)
-        tr_b = _prim_transforms_batched(scene, spheres, times)
-        hit, t, _ = intersect_ray_sphere(
-            tr_b.p,
-            scene.prims.radius[sel][:, None] * tr_b.s,
-            origins[None, :, :],
-            dirs[None, :, :],
-        )
-        occ = occ | (hit & (t > 0.0) & (t < tmax[None, :])).any(dim=0)
-    if planes:
-        sel = torch.as_tensor(planes, dtype=torch.long, device=dev)
-        hit, t, _ = intersect_ray_plane(
-            scene.prims.plane[sel][:, None, :], origins[None, :, :],
-            dirs[None, :, :],
-        )
-        occ = occ | (hit & (t > 0.0) & (t < tmax[None, :])).any(dim=0)
-
-    for idxs, is_tiny in _batches(tiny_groups, big):
-        handles = [scene.prim_static[i].mesh for i in idxs]
-        n_inst = len(idxs)
-        _, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
+    big = list(layout(scene.prim_static).big)
+    if big:
+        handles = [scene.prim_static[i].mesh for i in big]
+        n_inst = len(big)
+        _, o_l, d_l = _local_rays(scene, big, origins, dirs, times)
         noff, toff, slots = _offsets(handles, dev)
         # already-occluded rays get tmax 0 -> no hit in any frame
         tmax_r = torch.where(occ, 0.0, tmax)
         tmax_b = torch.broadcast_to(tmax_r[None, :], (n_inst, r))
         may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
-        tm = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
-        o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
-        if is_tiny:
-            oc = intersect_mesh_any(
-                scene.pool, handles[0].node_offset, handles[0].tri_offset, o_f, d_f,
-                tm, num_tris=handles[0].real_tris,
-            )
-        elif n_inst <= INSTANCE_TOPK_MIN:
+        if n_inst <= INSTANCE_TOPK_MIN:
+            tm = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
+            o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
             oc = ops_bvh.any_hit(
                 scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r), o_f, d_f,
                 tm, slots,
             )
+            occ = occ | oc.reshape(n_inst, r).any(dim=0)
         else:
             occ = _instance_rounds_any(scene, o_l, d_l, tn, tmax_r, occ, noff, toff, slots)
-            continue
-        occ = occ | oc.reshape(n_inst, r).any(dim=0)
     return occ
