@@ -27,19 +27,29 @@ Phases, each fatal on failure (exit code 1):
    trace_any call of a Cornell pass (1M rays each) and one whole pass,
    through a kept copy of the torch-op sweep (``old_trace_closest``,
    ``old_trace_any``) and through K5c / K5a, in turns: device ms,
-   launches, wall ms, the pass's idle share; then the sweep kernels K5c (closest hit) and K5a
-   (occlusion) against their plain versions on captured inputs, every
-   lane equal and t bit for bit: Cornell's 4 + 4 calls of one 512x512
-   depth-4 pass, the first call of each of a pass of
+   launches, wall ms, the pass's idle share, K5's device ms from CUDA
+   events around each launch beside the profiler's record of the same
+   launches (a mismatch between events and the wrappers' counts fails);
+   the profiler's record of a lone K5a launch, with and without a kernel
+   before it in the session; then the sweep kernels K5c (closest hit)
+   and K5a (occlusion) against their plain versions on captured inputs,
+   every lane equal and t bit for bit: Cornell's 4 + 4 calls of one
+   512x512 depth-4 pass, the first call of each of a pass of
    ``scenes/motionblur.tin`` and ``scenes/veach_mis.json``, and 1M rays
    in a scene of 2,000 spheres and 300 tiny instances whose record table
-   spans three shared-memory chunks; each timed by CUDA-graph replays,
-   with its share of the bound (``sweep_work``);
+   spans several shared-memory chunks; each timed by CUDA-graph replays,
+   with its share of the bound (``sweep_work``), the share that a kernel
+   without fused multiply-adds can reach at most, and its launch
+   geometry;
 6. the BVH walks K3 (closest hit) and K4 (any hit) against their plain
    versions on the card: the 524k-triangle sphere with 65,536 parallel
    rays, envmesh's first diffuse bounce and many_mesh's instance batch
    (per-lane offsets), each captured from a render pass on the card;
-   each record names its launch geometry and its share of the bound;
+   each record names its launch geometry and its share of the bound; the
+   seam count (``seam_count``) on the 524k sphere's rays and envmesh's
+   camera and first-bounce rays: the lanes where K3 hits under the
+   sweep's best t and the refit drops the hit (none may), beside those
+   that ``intersect_ray_tri``'s formula would drop;
 7. big meshes: envmesh on the card against the CPU at equal draws, then
    the big-mesh forward path (envmesh 512x512 depth 4 at 16 spp,
    many_mesh 512x512 depth 2, instances16 512x512 depth 3) with K3/K4's
@@ -80,7 +90,8 @@ Phases, each fatal on failure (exit code 1):
     cache write), warm import from the cache (flattened scenes equal),
     ``load_probe``, flatten; the 500x500 render at maxDepth 64, 4 spp,
     with K3/K4 counts reset just before and read just after; one profiled
-    pass; the card against the CPU at equal draws at 32x32;
+    pass; the seam count on its camera and first-bounce rays; the card
+    against the CPU at equal draws at 32x32;
 13. the entry points, each run with the kernels' launch counts reset just
     before and read just after, timed up to a device sync: the CLI in
     process (``app.cli``) on ``scenes/cornell.tin`` at its own 256x256,
@@ -249,9 +260,10 @@ def ptxas_summary(log: str):
         if m:
             args = re.findall(r"Li(\d+)E", m.group(2))
             inst = f"{m.group(1)}<{','.join(args)}>"
-        m = re.search(r"Compiling entry function '\w*?\d((?:bvh|sweep)_[a-z]+_kernel)E", line)
-        if m:
-            inst = m.group(1)
+        m = re.search(r"Compiling entry function '\w*?\d((?:bvh|sweep)_[a-z]+_kernel)"
+                      r"(?:ILb([01])EE)?E", line)
+        if m:  # a sweep kernel's template argument: its records move
+            inst = m.group(1) + ({"0": "<static>", "1": "<motion>"}.get(m.group(2), ""))
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -296,6 +308,16 @@ def bound(work):
     nbytes, ops = work
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def unfused_ceiling(work) -> float:
+    """The largest share of ``bound`` that a kernel built with -fmad=false
+    can reach: FP32_OPS_PER_S counts a fused multiply-add as two
+    operations, and without contraction each operation is an instruction
+    of its own, so operations take at least twice their bound."""
+    nbytes, ops = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) / max(t_bytes, 2 * t_ops)
 
 
 # ------------------------------------------------------------------ timing
@@ -714,16 +736,20 @@ def check_sweep(ops_sweep, name, flat, args, tag):
     kernel_ms = device_ms(run, sets)
     kernel_call_ms = call_ms(run, sets)
     plain_ms = _event_ms(lambda: plain_fn(flat, *args), 1)
-    bound_ms, bound_by = bound(sweep_work(flat, stats, closest))
+    work = sweep_work(flat, stats, closest)
+    bound_ms, bound_by = bound(work)
     tab = ops_sweep.table(flat, args[0].device)
+    tile, grid = ops_sweep.launch_geometry(name, tab, rays)
     rec = dict(
         kernel=name, shape=tag, rays=rays, hit_share=hit_share, mismatched=mismatched,
         t_bits_differing=t_bits, max_abs_err=err, kernel_ms=kernel_ms,
         kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        bound_share=bound_ms / kernel_ms, mrays_per_s=rays / kernel_ms / 1e3,
+        bound_share=bound_ms / kernel_ms, unfused_ceiling=unfused_ceiling(work),
+        mrays_per_s=rays / kernel_ms / 1e3,
         tests_per_ray={k: v / rays for k, v in stats.items() if k != "rays"},
         table_floats=int(tab.table.numel()), chunks=tab.n_chunks,
-        smem_bytes=4 * tab.smem_floats, launches=1, library_ms=None,
+        smem_bytes=4 * tab.smem_floats * (2 if tab.n_chunks > 1 else 1), tile_rays=tile,
+        grid=grid, launches=1, library_ms=None,
     )
     emit(rec)
     if mismatched or t_bits:
@@ -743,6 +769,48 @@ def sweep_args(args, closest: bool):
         return flat, (o, d, times)
     tmax = torch.broadcast_to(rest[0].to(torch.float32), (o.shape[0],)).contiguous()
     return flat, (o, d, times, tmax)
+
+
+def seam_count(flat, calls, tag):
+    """The big-mesh batch at a seam: on each trace_closest call's rays
+    ((scene, o, d, times) as captured), the lanes where K3's walk finds a
+    triangle under the sweep's best t and the refit then drops it (the
+    port's refit, the walk's own formula: none, or the run fails), beside
+    the lanes that the JAX package's refit formula, intersect_ray_tri,
+    would drop on the same winners."""
+    from tinsel_tpu_torch.accel.sweep import layout
+    from tinsel_tpu_torch.geometry.intersect import intersect_ray_tri
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+    from tinsel_tpu_torch.render import trace
+
+    lay = layout(flat.prim_static)
+    orig, seen = trace.tri_refit, {}
+
+    def both(va, vb, vc, o, d):
+        out = orig(va, vb, vc, o, d)
+        seen["t_jax_formula"] = intersect_ray_tri(
+            *(torch.stack(x, -1) for x in (va, vb, vc, o, d)))[1]
+        return out
+
+    recs = []
+    trace.tri_refit = both
+    try:
+        for (_, o, d, times), _ in calls:
+            with torch.no_grad():
+                _, prim, tri = ops_sweep.sweep_closest(flat, o, d, times)
+                best_t, _ = trace._refit(flat, lay, o, d, times, prim, tri)
+                big = trace._big_closest(flat, lay, o, d, times, best_t)
+            t_j = seen["t_jax_formula"]
+            kept_j = big.hit & (t_j > 0.0) & (t_j < best_t)
+            recs.append(dict(rays=int(o.shape[0]), walk_hits=int(big.hit.sum()),
+                             dropped=int((big.hit & ~big.closer).sum()),
+                             dropped_by_intersect_ray_tri=int((big.hit & ~kept_j).sum())))
+    finally:
+        trace.tri_refit = orig
+    emit(dict(phase="seam_count", scene=tag, calls=recs))
+    if any(r["dropped"] for r in recs):
+        fail(f"seam count {tag}: the refit dropped lanes the walk hit: {recs}")
+    return recs
 
 
 def sweep_kernel_phase(dev):
@@ -804,11 +872,12 @@ def sweep_kernel_phase(dev):
     ray = [rng.uniform(-11, 11, (n, 3)), d / np.linalg.norm(d, axis=-1, keepdims=True),
            rng.random(n), np.where(rng.random(n) < 0.2, np.inf, rng.uniform(0, 6, n))]
     ray = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in ray]
-    tag = "stress 2000 spheres 300 instances (3 chunks)"
+    n_chunks = ops_sweep.table(flat, dev).n_chunks
+    if n_chunks < 2:
+        fail(f"the stress scene's table is {n_chunks} chunk, not several")
+    tag = f"stress 2000 spheres 300 instances ({n_chunks} chunks)"
     recs["sweep_closest"].append(check_sweep(ops_sweep, "sweep_closest", flat, ray[:3], tag))
     recs["sweep_any"].append(check_sweep(ops_sweep, "sweep_any", flat, ray, tag))
-    if ops_sweep.table(flat, dev).n_chunks != 3:
-        fail("the stress scene's table is not three chunks")
     return recs
 
 
@@ -968,6 +1037,7 @@ def sphere_workload(dev):
     emit(dict(phase="sphere524k", triangles=h.real_tris, nodes=h.num_nodes,
               stack_slots=h.stack_slots, builder="native", host_build_s=build_s,
               mesh_s=t1 - t0, build_s=t2 - t1, flatten_s=t3 - t2))
+    seam_count(flat, [((flat, o, d, torch.zeros(r, device=dev)), {})], "sphere524k")
     return (flat.pool, h.node_offset, h.tri_offset, o, d, tmax, h.stack_slots)
 
 
@@ -983,13 +1053,19 @@ def bvh_inputs(dev):
     from tinsel_tpu_torch.render.renderer import make_render_pass
     from tinsel_tpu_torch.scene.presets import envmesh_scene, many_mesh_scene
 
+    from tinsel_tpu_torch.render import integrator
+
     inputs = {"sphere524k": {"closest": sphere_workload(dev)}}
     for name, sc in (("envmesh", envmesh_scene(BIG_W, BIG_H, 4)),
                      ("many_mesh", many_mesh_scene(48, BIG_W, BIG_H, 2))):
         flat = sc.flatten(dev)
         cam = CameraParams.from_host(sc.camera, dev)
         with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
-            make_render_pass(sc.options)(flat, cam, PathUniforms(9, dev))
+            traced = capture_calls(((integrator, "trace_closest"),), lambda: make_render_pass(
+                sc.options)(flat, cam, PathUniforms(9, dev)))["trace_closest"]
+        if name == "envmesh":  # camera rays and the first bounce
+            seam_count(flat, traced[:2], f"envmesh {BIG_W}x{BIG_H} bounces 0-1")
+        del traced
         closest, anyh = cap.calls["closest_hit"], cap.calls["any_hit"]
         if name == "envmesh":  # bounce 1: the first diffuse bounce
             inputs[name] = {"closest": closest[1]}
@@ -1631,27 +1707,83 @@ def capture_calls(targets, run, outs=None):
     return calls
 
 
-def profiled(run):
+SPIN_CYCLES = 200_000  # torch.cuda._sleep: ~0.1 ms of the card at 1.98 GHz
+
+
+def profiled(run, warm: bool = True):
     """One run under the profiler: device busy ms and kernel launches in
-    all, of the walk kernels (bvh_*) and of the sweep kernels (sweep_*),
-    and its wall ms there."""
+    all, of the walk kernels (bvh_*) and of the sweep kernels (sweep_*,
+    also timed by CUDA events around each launch, ``sweep_spans``), and
+    its wall ms there. ``warm``: a spin kernel runs first inside the
+    session and is left out of the records (see ``profiler_probe``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
+        if warm:
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        with sweep_spans(spin=warm) as spans:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = [(k, ms) for k, ms in device_events(prof) if "spin_kernel" not in k]
     walks = [ms for key, ms in events if "bvh_" in key]
     sweeps = [ms for key, ms in events if "sweep_" in key]
     busy = sum(ms for _, ms in events)
-    if busy <= 0:
+    if busy <= 0 and warm:
         fail("the profiler recorded no device time")
-    return dict(device_ms=busy, launches=len(events), walk_device_ms=sum(walks),
-                walk_launches=len(walks), sweep_device_ms=sum(sweeps),
-                sweep_launches=len(sweeps), profiled_wall_ms=wall)
+    return dict(device_ms=busy, launches=len(events),
+                walk_device_ms=sum(walks), walk_launches=len(walks),
+                sweep_device_ms=spans["device_ms"], sweep_launches=spans["launches"],
+                sweep_launches_counted=spans["counted"],
+                profiler_sweep_launches=len(sweeps), profiler_sweep_device_ms=sum(sweeps),
+                profiled_wall_ms=wall)
+
+
+@contextlib.contextmanager
+def sweep_spans(spin: bool = True):
+    """CUDA events around each K5c / K5a launch inside the block (``spin``:
+    a spin kernel first, so the card is still busy when the host reaches
+    the launch and the pair times the kernel, not the host's dispatch).
+    Yields a dict filled on exit: the spans' launches and device ms and
+    the launches the wrappers counted; fails when the events and the
+    wrappers' counts differ."""
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+
+    spans, out = [], {}
+    before = dict(ops_sweep.launch_counts)
+    orig = ops_sweep._entry
+
+    def entry(kernel):
+        fn = orig(kernel)
+
+        def timed(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            for e in (start, end):  # created (at their first record) before the spin
+                e.record()
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            err = fn(*args)
+            end.record()
+            if err == 0:
+                spans.append((start, end))
+            return err
+        return timed
+
+    ops_sweep._entry = entry
+    try:
+        yield out
+    finally:
+        ops_sweep._entry = orig
+    torch.cuda.synchronize()
+    counted = sum(ops_sweep.launch_counts[k] - before[k] for k in before)
+    out.update(launches=len(spans), counted=counted,
+               device_ms=sum(a.elapsed_time(b) for a, b in spans))
+    if len(spans) != counted:
+        fail(f"sweep spans: {len(spans)} launches timed by events, {counted} counted")
 
 
 def sweep_work(flat, stats, closest: bool):
@@ -1820,11 +1952,12 @@ def trace_ab_phase(dev):
     1M rays a call; 5 planes, 2 spheres and the 2-triangle light) through
     the kept torch-op copy (``old_trace_closest`` / ``old_trace_any``) and
     through kernels K5c / K5a, in turns (old, new, new, old): device ms and
-    launches from the profiler, the call's wall ms under CUDA events, the
-    sweep kernels' launches as their wrappers count them; then one whole
-    Cornell pass each way, its launches and idle share (profiled). Runs
-    right after the main path's profile: in a process that has run the
-    later phases the profiler has been seen to record no sweep kernel."""
+    launches from the profiler, the sweep kernels' device ms from CUDA
+    events around each launch (``sweep_spans``) beside the profiler's
+    record of them, the call's wall ms under CUDA events, the sweep
+    kernels' launches as their wrappers count them; then one whole Cornell
+    pass each way, its launches and idle share (profiled); then
+    ``profiler_probe`` on the trace_any call."""
     from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.ops import sweep as ops_sweep
     from tinsel_tpu_torch.render import integrator, lights, trace
@@ -1847,7 +1980,10 @@ def trace_ab_phase(dev):
             fn(*args, **kw)
             wall = _event_ms(lambda: fn(*args, **kw), 1)
         return dict(device_ms=prof["device_ms"], launches=prof["launches"],
-                    sweep_launches_counted=sweeps, sweep_device_ms=prof["sweep_device_ms"],
+                    sweep_launches_counted=sweeps, sweep_launches=prof["sweep_launches"],
+                    sweep_device_ms=prof["sweep_device_ms"],
+                    profiler_sweep_launches=prof["profiler_sweep_launches"],
+                    profiler_sweep_device_ms=prof["profiler_sweep_device_ms"],
                     wall_ms=wall, profiled_wall_ms=prof["profiled_wall_ms"])
 
     recs = {}
@@ -1886,6 +2022,8 @@ def trace_ab_phase(dev):
                                                     sweep_any=int(name == "trace_any"))
                for how, r in runs if how == "K5"):
             fail(f"K5 A/B {name}: a call through K5 did not launch its sweep kernel once")
+        if name == "trace_any":
+            recs["profiler probe"] = profiler_probe(lambda: new(*args, **kw))
     del calls
 
     def pass_record(how):
@@ -1904,6 +2042,27 @@ def trace_ab_phase(dev):
     emit(rec)
     recs["K5 pass"] = rec
     return recs
+
+
+def profiler_probe(call, reps: int = 8) -> dict:
+    """How often torch.profiler records the one sweep kernel of ``call``
+    (a trace_any call: K5a is its only kernel) in a session of its own,
+    ``reps`` sessions each way: cold (the call is the session's first
+    device work; its events then also time the host's dispatch) and warm
+    (a spin kernel runs first in the session and before the launch, as
+    ``profiled`` does). The kernel's launches and device ms from CUDA
+    events stand beside (``sweep_spans``)."""
+    out = {}
+    for how in ("cold", "warm"):
+        runs = [profiled(call, warm=how == "warm") for _ in range(reps)]
+        out[how] = dict(
+            launches_by_events=sum(r["sweep_launches"] for r in runs),
+            launches_recorded_by_profiler=sum(r["profiler_sweep_launches"] for r in runs),
+            event_ms=[r["sweep_device_ms"] for r in runs],
+            profiler_ms=[r["profiler_sweep_device_ms"] for r in runs])
+    emit(dict(phase="trace_ops", what="profiler record of K5a, one trace_any call a session",
+              sessions=reps, **out))
+    return out
 
 
 def trace_ops_phase(dev):
@@ -2261,7 +2420,16 @@ def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
                   {"ajaxenv": {"pass_ms": pass_ms}},
                   entries=(("ajaxenv", o.max_depth, SCENE_FILE_SPP),),
                   phase="ajaxenv_walks_in_pass")
-    del flat, accum
+    del accum
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.render import integrator
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+
+    with torch.no_grad():
+        traced = capture_calls(((integrator, "trace_closest"),), lambda: make_render_pass(
+            o, 1)(flat, cam, PathUniforms(5, dev)))["trace_closest"]
+    seam_count(flat, traced[:2], f"ajaxenv {o.width}x{o.height} bounces 0-1")
+    del flat, traced
     equal_draws_small(cold, 32, 32, 4, "ajaxenv stand-in 32x32 d4 1spp", dev)
     return launches
 

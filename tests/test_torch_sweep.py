@@ -333,55 +333,157 @@ def test_the_kernel_wrappers_refuse_cpu_tensors():
 
 
 def _decode(table, bounds):
-    """Records of each chunk: [(kind, prim or None, opens)]; checks that
-    every instance follows its group's record within its chunk."""
+    """Each chunk's runs, checked against its header: {"spheres": [(prim,
+    record)], "planes": [...], "groups": [(flags, first triangle, box
+    (8,), triangles (T, 12), [(prim, record)])]}; every run starts on a
+    16-byte boundary, id runs are padded with zeros and the runs fill the
+    chunk."""
     ints = table.view(np.int32)
     chunks = []
     for c0, c1 in zip(bounds[:-1], bounds[1:]):
-        recs, pos, group = [], c0, None
-        while pos < c1:
-            kind = int(ints[pos])
-            if kind == ops.SPHERE:
-                recs.append((kind, int(ints[pos + 1]), None))
-                pos += ops.SPHERE_LEN
-            elif kind == ops.PLANE:
-                recs.append((kind, int(ints[pos + 1]), None))
-                pos += ops.PLANE_LEN
-            elif kind == ops.GROUP:
-                group = pos
-                recs.append((kind, None, float(table[pos + 2])))
-                pos += ops.GROUP_HEAD + 9 * int(ints[pos + 1])
-            elif kind == ops.INSTANCE:
-                assert group is not None
-                recs.append((kind, int(ints[pos + 1]), None))
-                pos += ops.INSTANCE_LEN
-            else:
-                assert kind == ops.END
-                recs.append((kind, None, None))
-                pos += ops.END_LEN
+        assert c0 % 4 == 0 and c1 % 4 == 0
+        ns, n_planes, ng, flags = ints[c0:c0 + 4]
+        pos = c0 + ops.HEAD
+
+        def run(n, width):
+            nonlocal pos
+            ids = ints[pos:pos + ops._pad4(n)]
+            assert not ids[n:].any()  # padding
+            pos += ops._pad4(n)
+            recs = table[pos:pos + n * width].reshape(n, width)
+            pos += n * width
+            return list(zip(ids[:n].tolist(), recs))
+
+        moves = bool(flags & ops.SPHERES_MOVE)
+        spheres = run(ns, ops.SPHERE_MOVING if moves else ops.SPHERE_STATIC)
+        planes = run(n_planes, ops.PLANE_LEN)
+        groups = []
+        for _ in range(ng):
+            nt, ni, gflags, tri0 = ints[pos:pos + 4]
+            box = table[pos + 4:pos + ops.GROUP_HEAD]
+            pos += ops.GROUP_HEAD
+            tris = table[pos:pos + nt * ops.TRI_LEN].reshape(nt, ops.TRI_LEN)
+            pos += nt * ops.TRI_LEN
+            width = ops.INSTANCE_MOVING if gflags & ops.MOVES else ops.INSTANCE_STATIC
+            groups.append((int(gflags), int(tri0), box, tris, run(ni, width)))
         assert pos == c1
-        chunks.append(recs)
+        chunks.append({"spheres": spheres, "planes": planes, "groups": groups,
+                       "spheres_move": moves})
     return chunks
 
 
-def test_record_table_in_merge_order_and_chunks(case):
+def _merge_order(chunks):
+    """(kind, prim) in the order the kernels test them, a group's opening
+    and closing as (kind, None)."""
+    seen = []
+    for ch in chunks:
+        seen += [(tmodel.SPHERE, i) for i, _ in ch["spheres"]]
+        seen += [(tmodel.PLANE, i) for i, _ in ch["planes"]]
+        for flags, _, _, _, inst in ch["groups"]:
+            seen += [("open", None)] if flags & ops.OPENS else []
+            seen += [(tmodel.MESH, i) for i, _ in inst]
+            seen += [("close", None)] if flags & ops.CLOSES else []
+    return seen
+
+
+@pytest.mark.parametrize("chunk_floats", [None, 600])
+def test_record_table_in_merge_order_and_chunks(case, chunk_floats):
+    """The table's runs in the plain version's merge order, in chunks of at
+    most the limit: by default one chunk up to SMEM_FLOATS, else chunks of
+    up to CHUNK_FLOATS; at 600 floats the synthetic scene's groups are cut,
+    and a chunk that starts inside a group repeats its head and
+    triangles, not opening it."""
     name, (_, tf, *_) = case
-    table, bounds = ops.pack_records(tf)
+    table, bounds = ops.pack_records(tf, chunk_floats)
     sizes = np.diff(bounds)
-    assert bounds[0] == 0 and bounds[-1] == table.size and (sizes <= ops.CHUNK_FLOATS).all()
+    assert bounds[0] == 0 and bounds[-1] == table.size
     chunks = _decode(table, bounds)
     lay = plain.layout(tf.prim_static)
-    order = [(ops.SPHERE, i) for i in lay.spheres] + [(ops.PLANE, i) for i in lay.planes]
+    order = [(tmodel.SPHERE, i) for i in lay.spheres] + [(tmodel.PLANE, i) for i in lay.planes]
     for g in lay.groups:
-        order += [(ops.GROUP, None)] + [(ops.INSTANCE, i) for i in g.prims] + [(ops.END, None)]
-    seen = [(k, p) for recs in chunks for k, p, opens in recs if opens != 0.0]
-    assert seen == order
-    if name == "multichunk":
+        order += [("open", None)] + [(tmodel.MESH, i) for i in g.prims] + [("close", None)]
+    assert _merge_order(chunks) == order
+    if chunk_floats is not None:
+        assert (sizes <= chunk_floats).all()
+    elif name == "multichunk":
+        assert table.size > ops.SMEM_FLOATS and (sizes <= ops.CHUNK_FLOATS).all()
         assert len(chunks) == 3
-        # a group cut by a chunk bound goes on with its record, not opening
-        assert any(recs[0][0] == ops.GROUP and recs[0][2] == 0.0 for recs in chunks[1:])
     else:
-        assert len(chunks) == 1
+        assert len(chunks) == 1 and table.size <= ops.SMEM_FLOATS
+    if name == "multichunk" and chunk_floats is not None:
+        cut = [ch["groups"][0] for ch in chunks[1:]
+               if ch["groups"] and not ch["groups"][0][0] & ops.OPENS]
+        assert cut and all(len(g[3]) > 0 for g in cut)
+        # every part of a group carries its head and all its triangles
+        heads = {}
+        for ch in chunks:
+            for flags, tri0, box, tris, _ in ch["groups"]:
+                key = (tri0, tris.tobytes(), box.tobytes())
+                heads.setdefault(tri0, key)
+                assert heads[tri0] == key
+
+
+def test_precomputed_fields_equal_the_plain_versions_bits(case):
+    """Every field packed on the host equals, bit for bit, what the plain
+    versions compute from the same vertices, radii and transforms: a
+    triangle's edges (``_tri_hit``'s ab, ac) and normal (``ray_tri``'s
+    ab x ac), a static sphere's radius * s, a moving record's end - start,
+    a static instance's -q."""
+    from tinsel_tpu_torch.accel import traverse as ttrav
+
+    name, (_, tf, *_) = case
+    table, bounds = ops.pack_records(tf)
+    pr = tf.prims
+    lay = plain.layout(tf.prim_static)
+    cpu = torch.zeros(())
+
+    def same(a, b):
+        a = np.asarray(a, np.float32)
+        b = torch.as_tensor(b, dtype=torch.float32).numpy()
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+    n_tris = 0
+    for ch in _decode(table, bounds):
+        for i, rec in ch["spheres"]:
+            same(rec[:3], pr.start_p[i])
+            if ch["spheres_move"]:
+                assert lay.sphere_motion
+                same(rec[3], pr.start_s[i])
+                same(rec[4:7], pr.end_p[i] - pr.start_p[i])
+                same(rec[7], pr.end_s[i] - pr.start_s[i])
+                same(rec[8], pr.radius[i])
+            else:  # _sphere_rows: radius * s
+                same(rec[3], pr.radius[i] * pr.start_s[i])
+        for i, rec in ch["planes"]:
+            same(rec, pr.plane[i])
+        for flags, tri0, box, tris, inst in ch["groups"]:
+            g = next(g for g in lay.groups if g.handle.tri_offset == tri0)
+            assert bool(flags & ops.MOVES) == g.motion
+            same(box, [*g.handle.root_lower, 0, *g.handle.root_upper, 0])
+            for k, rec in enumerate(tris):
+                v = [tuple(c[tri0 + k] for c in tf.pool.tri_planes[3 * j:3 * j + 3])
+                     for j in range(3)]
+                ab, ac, *_ = ttrav._mt_terms(*v, (cpu,) * 3, (cpu,) * 3, 1e-9)
+                # d = 0: dot(-d, n) is +-0, so ray_tri's n_geo is ab x ac unflipped
+                *_, n_geo = plain.ray_tri(*v, (cpu,) * 3, (cpu,) * 3)
+                same(rec[0:3], v[0])
+                same(rec[3:6], ab)
+                same(rec[6:9], ac)
+                same(rec[9:12], n_geo)
+                n_tris += 1
+            for i, rec in inst:
+                same(rec[0:3], pr.start_p[i])
+                same(rec[3], pr.start_s[i])
+                if g.motion:
+                    same(rec[4:8], pr.start_q[i])
+                    same(rec[8:11], pr.end_p[i] - pr.start_p[i])
+                    same(rec[11], pr.end_s[i] - pr.start_s[i])
+                    same(rec[12:16], pr.end_q[i] - pr.start_q[i])
+                else:  # inverse_rotate's u = -q.xyz, and q.w
+                    same(rec[4:7], -pr.start_q[i][:3])
+                    same(rec[7], pr.start_q[i][3])
+    # a group cut by a chunk bound has its triangles in each part
+    assert n_tris >= sum(g.tris for g in lay.groups)
 
 
 def test_packed_table_is_kept_until_a_table_changes():
@@ -391,3 +493,99 @@ def test_packed_table_is_kept_until_a_table_changes():
     tf.prims.radius.add_(0.0)  # in place: a new version
     b = ops.table(tf, torch.device("cpu"))
     assert b is not a and torch.equal(a.table, b.table)
+
+
+# ------------------------------------------ the big batch's refit at a seam
+
+
+def _jax_big_drops(jf, o, d, times, best_t):
+    """The JAX package's big-mesh batch of trace_closest
+    (``tinsel_tpu/render/trace.py:431-560``, eager, its own functions) on
+    the given best t: (lanes where the walk finds a triangle under best t,
+    lanes among them whose refit by ``intersect_ray_tri`` is dropped)."""
+    from tinsel_tpu.geometry.intersect import intersect_ray_tri as jray_tri
+
+    _, big, _ = jtrace._mesh_partition(jf)
+    handles = [jf.prim_static[i].mesh for i in big]
+    n, r = len(big), o.shape[0]
+    tr_b = jtrace._prim_transforms_batched(jf, big, times)
+    o_l = jmath.inverse_transform_point(tr_b, o[None])
+    d_l = jmath.inverse_transform_vector(tr_b, d[None])
+    tmax_b = jnp.broadcast_to(best_t[None], (n, r))
+    may, tn = jtrace._instance_box_entry(handles, o_l, d_l, tmax_b)
+    noff = np.asarray([h.node_offset for h in handles], np.int32)
+    toff = np.asarray([h.tri_offset for h in handles], np.int32)
+    slots = max(h.stack_slots for h in handles)
+    ids = jnp.arange(n, dtype=jnp.int32)[:, None]
+    if n <= jtrace.INSTANCE_TOPK_MIN:
+        lanes = lambda x: jnp.broadcast_to(jnp.asarray(x)[:, None], (n, r)).reshape(-1)  # noqa: E731
+        t_f, tri_f, *_ = jintersect_mesh(jf.pool, lanes(noff), lanes(toff), o_l.reshape(-1, 3),
+                                         d_l.reshape(-1, 3),
+                                         jnp.where(may, tmax_b, 0.0).reshape(-1),
+                                         stack_slots=slots)
+        t_i, tri_i = t_f.reshape(n, r), tri_f.reshape(n, r)
+        t_min = t_i.min(0)
+        inst = jnp.minimum(jnp.where(t_i == t_min[None], ids, n).min(0), n - 1)
+        tri = jnp.where(ids == inst[None], tri_i, -1).max(0)
+    else:
+        t_min, tri, inst = jtrace._instance_rounds(jf, o_l, d_l, tn, best_t, noff, toff, slots)
+    hit = jnp.isfinite(t_min) & (t_min < best_t)
+    onehot = (ids == inst[None]).astype(jnp.float32)
+    ow, dw = (onehot[..., None] * o_l).sum(0), (onehot[..., None] * d_l).sum(0)
+    v0, v1, v2 = jf.pool.gather_tri(jnp.asarray(toff)[inst] + jnp.maximum(tri, 0))
+    _, t, *_ = jray_tri(v0, v1, v2, ow, dw)
+    t = jnp.where(hit & (tri >= 0), t, jnp.inf)
+    closer = hit & (t > 0.0) & (t < best_t)
+    return np.asarray(hit), np.asarray(hit & ~closer)
+
+
+def _seam_rays(tf, seed, n=R):
+    """Rays from above the floor aimed at points on the edges of random
+    big-mesh triangles (world = p + s v: these presets do not rotate)."""
+    rng = np.random.default_rng(seed)
+    big = plain.layout(tf.prim_static).big
+    o = np.stack([rng.uniform(-3, 3, n), rng.uniform(0.5, 3, n), rng.uniform(-3, 3, n)], -1)
+    prim = np.asarray(big)[rng.integers(len(big), size=n)]
+    tris = np.array([tf.prim_static[p].mesh.tri_offset
+                     + rng.integers(tf.prim_static[p].mesh.real_tris) for p in prim])
+    verts = np.stack([np.stack([c.numpy()[tris] for c in tf.pool.tri_planes[3 * j:3 * j + 3]], -1)
+                      for j in range(3)], 1)  # (n, 3, 3)
+    a = rng.integers(3, size=n)
+    b = (a + rng.integers(1, 3, size=n)) % 3
+    rows = np.arange(n)
+    x = verts[rows, a] + rng.random((n, 1)) * (verts[rows, b] - verts[rows, a])
+    world = tf.prims.start_p.numpy()[prim] + tf.prims.start_s.numpy()[prim][:, None] * x
+    d = world - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32), np.zeros(n, np.float32)
+
+
+@pytest.mark.parametrize("preset, args", [("envmesh_scene", (32, 32, 4, 40)),
+                                          ("many_mesh_scene", (20, 32, 32, 2))])
+def test_big_batch_refit_drops_no_lane_that_jax_keeps(preset, args):
+    """Rays aimed at the edges between big-mesh triangles (a Perlin sphere
+    of 3,200 triangles; 14 big meshes in shortlist rounds and 6 tiny
+    ones): the lanes where the walk finds a triangle under the sweep's
+    best t and the refit then drops it. No tolerance: a set comparison.
+    The port's drops must be a subset of the JAX package's; its refit
+    takes the walk's own formula, so it drops none, and its t is the
+    walk's. (With ``intersect_ray_tri``'s torch form, the refit the port
+    took before, it dropped lanes here that JAX keeps, on both scenes.)"""
+    from tinsel_tpu.scene import presets as jpresets
+    from tinsel_tpu_torch.scene import presets as tpresets
+
+    jf = getattr(jpresets, preset)(*args).flatten()
+    tf = getattr(tpresets, preset)(*args).flatten(device="cpu")
+    o, d, times = _seam_rays(tf, 3)
+    lay = plain.layout(tf.prim_static)
+    ot, dt, tt = (torch.from_numpy(x) for x in (o, d, times))
+    _, prim, tri = plain.sweep_closest(tf, ot, dt, tt)
+    with torch.no_grad():
+        best_t, _ = ttrace._refit(tf, lay, ot, dt, tt, prim, tri)
+        big = ttrace._big_closest(tf, lay, ot, dt, tt, best_t)
+    drops = (big.hit & ~big.closer).numpy()
+    jhit, jdrops = _jax_big_drops(jf, *map(jnp.asarray, (o, d, times, best_t.numpy())))
+    assert big.hit.float().mean() > 0.9 and jhit.mean() > 0.9
+    assert jdrops.sum() > 0.01 * R  # the rays reach seams where JAX's refit misses
+    assert not (drops & ~jdrops).any()
+    assert not drops.any()

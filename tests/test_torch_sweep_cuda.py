@@ -15,7 +15,12 @@ Cornell box, scenes/motionblur.tin (a moving sphere), scenes/veach_mis.json
 a synthetic scene of 2,000 spheres and 300 tiny instances, some moving,
 whose record table spans three shared-memory chunks; ray counts that leave
 the last block part-filled; axis-aligned directions; tmax 0, -0.0, NaN and
-+inf; a scene with nothing to sweep.
++inf; a scene with nothing to sweep. Around the persistent grid: ray counts
+of 1, a tile - 1 and + 1, fewer tiles than resident blocks and several
+strides of the grid; the synthetic table cut into 600-float chunks (groups
+split across chunks, two buffers taking turns over tiles); warps whose rays
+are all, none or some occluded (K5a's per-warp exit). A launch whose
+shared memory is above the card's opt-in limit raises.
 """
 
 import os
@@ -232,3 +237,92 @@ def test_trace_routes_the_sweep_through_the_kernels(cuda):
     assert torch.equal(out["cuda"][3], out["cpu"][3])
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-5, atol=1e-5)
+
+
+def _random_rays(rng, n):
+    o = rng.uniform(-11, 11, (n, 3)).astype(np.float32)
+    return o, _unit(rng, n), rng.random(n).astype(np.float32), _tmax(rng, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["one", "tile-1", "tile+1", "few tiles", "strides"])
+def test_ray_counts_around_the_tile_and_the_persistent_grid(cuda, which):
+    """1 ray, a tile (THREADS * RAYS rays, csrc/sweep.cu) less and more one,
+    fewer tiles than the grid's resident blocks, and enough tiles for each
+    block to take several strides."""
+    sc = synthetic_scene(model) if which != "strides" else presets.cornell_scene(64, 64, 4)
+    flat = sc.flatten(device=cuda)
+    tab = ops.table(flat, cuda)
+    tile, grid = ops.launch_geometry("sweep_closest", tab, 1 << 20)
+    n = {"one": 1, "tile-1": tile - 1, "tile+1": tile + 1, "few tiles": 3 * tile + 7,
+         "strides": 3 * grid * tile + tile // 2 + 3}[which]
+    _, grid_n = ops.launch_geometry("sweep_closest", tab, n)
+    if which == "few tiles":
+        assert grid_n == -(-n // tile) < grid  # one block a tile
+    if which == "strides":
+        assert -(-n // tile) > 3 * grid_n  # every block takes 3 or 4 tiles
+    rng = np.random.default_rng(n)
+    args = [torch.from_numpy(x).to(cuda) for x in _random_rays(rng, n)]
+    _assert_kernels_equal_plain(flat, *args)
+
+
+@pytest.mark.cuda
+def test_table_of_many_small_chunks(cuda, monkeypatch):
+    """The synthetic scene packed into chunks of at most 600 floats: groups
+    cut across chunks (a chunk starting inside a group), the two buffers
+    taking turns across the tiles of a block."""
+    monkeypatch.setattr(ops, "SMEM_FLOATS", 1200)
+    monkeypatch.setattr(ops, "CHUNK_FLOATS", 600)
+    flat = synthetic_scene(model).flatten(device=cuda)
+    tab = ops.table(flat, cuda)
+    assert tab.n_chunks > 40 and tab.smem_floats <= 600
+    rng = np.random.default_rng(8)
+    for n in (1, 3000):
+        args = [torch.from_numpy(x).to(cuda) for x in _random_rays(rng, n)]
+        _assert_kernels_equal_plain(flat, *args)
+
+
+@pytest.mark.cuda
+def test_warps_with_all_none_or_some_rays_occluded(cuda):
+    """K5a's per-warp exit: runs of 64 rays (one warp's) whose segments
+    all reach far (occluded by the box's walls), all end at once (tmax
+    1e-4: none occluded), or alternate; the kernel's bits equal the plain
+    version's on every lane."""
+    flat = presets.cornell_scene(64, 64, 4).flatten(device=cuda)
+    rng = np.random.default_rng(6)
+    n = 64 * 300
+    o = np.stack([rng.uniform(-0.9, 0.9, n), rng.uniform(0.1, 1.9, n),
+                  rng.uniform(-0.9, 2.5, n)], -1).astype(np.float32)
+    run = np.arange(n) // 64 % 3
+    far = np.where(run == 0, True, np.where(run == 1, False, rng.random(n) < 0.5))
+    tmax = np.where(far, 50.0, 1e-4).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (o, _unit(rng, n), np.zeros(n, np.float32),
+                                                   tmax)]
+    *_, occ = _assert_kernels_equal_plain(flat, *args)
+    occ = occ.cpu().numpy()
+    assert occ[run == 0].mean() > 0.99 and not occ[run == 1].any()
+    assert 0.3 < occ[run == 2].mean() < 0.7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_shared_memory_above_the_opt_in_limit_raises(cuda, monkeypatch, chunks):
+    """A table whose staging needs more shared memory than a block may opt
+    in to (one chunk of 256 KB, or two buffers of 120 KB) is refused with
+    an error, nothing launched, never zeros returned."""
+    floats = 65536 if chunks == 1 else 30720
+    big = ops.SweepTable(
+        table=torch.zeros(floats * chunks, device=cuda),
+        chunks=torch.arange(chunks + 1, dtype=torch.int32, device=cuda) * floats,
+        n_chunks=chunks, smem_floats=floats, motion=False)
+    monkeypatch.setattr(ops, "table", lambda scene, dev: big)
+    flat = presets.cornell_scene(8, 8, 1).flatten(device=cuda)
+    o = torch.zeros(64, 3, device=cuda)
+    d = torch.ones(64, 3, device=cuda)
+    z = torch.zeros(64, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="opt in"):
+        ops.sweep_closest_cuda(flat, o, d, z)
+    with pytest.raises(RuntimeError, match="opt in"):
+        ops.sweep_any_cuda(flat, o, d, z, z)
+    assert ops.launch_counts == {"sweep_closest": 0, "sweep_any": 0}

@@ -93,9 +93,9 @@ class MeshHandle:
     stack_slots: int  # worst-case walk stack depth (build.wide_stack_bound)
 
 
-def _tri_hit(va, vb, vc, o, d, eps=1e-9):
-    """Two-sided Moller-Trumbore, component-wise. va/vb/vc/o/d: 3-tuples of
-    broadcast-compatible tensors. Returns (hit, t)."""
+def _mt_terms(va, vb, vc, o, d, eps):
+    """Two-sided Moller-Trumbore, component-wise: (ab, ac, hit, t, u, v),
+    u and v the weights of vb and vc."""
     abx = vb[0] - va[0]
     aby = vb[1] - va[1]
     abz = vb[2] - va[2]
@@ -120,7 +120,29 @@ def _tri_hit(va, vb, vc, o, d, eps=1e-9):
     v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv
     t = (acx * qx + acy * qy + acz * qz) * inv
     hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return (abx, aby, abz), (acx, acy, acz), hit, t, u, v
+
+
+def _tri_hit(va, vb, vc, o, d, eps=1e-9):
+    """Two-sided Moller-Trumbore, component-wise. va/vb/vc/o/d: 3-tuples of
+    broadcast-compatible tensors. Returns (hit, t)."""
+    _, _, hit, t, _, _ = _mt_terms(va, vb, vc, o, d, eps)
     return hit, t
+
+
+def tri_refit(va, vb, vc, o, d, eps=1e-9):
+    """The walk's own triangle test (``_tri_hit``: the same operations in
+    the same order, so t equals the walk's bit for bit) with what a refit
+    needs, in ``intersect_ray_tri``'s form: (hit, t, u, v, w, n_geo), t =
+    +inf on a miss, u, v, w the weights of va, vb, vc, n_geo = ab x ac
+    (3-tuple) flipped towards the side the ray arrives from."""
+    ab, ac, hit, t, bv, bw = _mt_terms(va, vb, vc, o, d, eps)
+    n = (ab[1] * ac[2] - ab[2] * ac[1], ab[2] * ac[0] - ab[0] * ac[2],
+         ab[0] * ac[1] - ab[1] * ac[0])
+    dn = -d[0] * n[0] + -d[1] * n[1] + -d[2] * n[2]
+    sign = torch.where(dn >= 0.0, 1.0, -1.0)
+    return (hit, torch.where(hit, t, INF), (1.0 - bv) - bw, bv, bw,
+            tuple(x * sign for x in n))
 
 
 def _intersect_mesh_brute(pool: MeshPool, tri_offset: int, num_tris: int,

@@ -19,10 +19,11 @@ Hits merge in the JAX order (spheres, planes, tiny groups, the big batch)
 with a strict ``<``, so ties keep the earlier primitive. Each search's
 winner is then intersected again with grad enabled (``_refit`` for the
 sweep's, with its formulas, so t keeps its bits; the big batch's
-triangle as the JAX package does), vertices and normals detached
-(``MESH_VERTEX_GRADS = False`` there), so gradients reach the ray and the
-primitive's transform, radius or plane. The final normal is
-face-forwarded against the ray.
+triangle with the walk's formula, ``accel/traverse.py::tri_refit``, so a
+ray through a seam keeps the hit that the walk found), vertices and
+normals detached (``MESH_VERTEX_GRADS = False`` there), so gradients
+reach the ray and the primitive's transform, radius or plane. The final
+normal is face-forwarded against the ray.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ from ..core.math import (
     quat_rotate,
     safe_normalize,
 )
-from ..geometry.intersect import INF, intersect_ray_tri
+from ..accel.traverse import tri_refit
+from ..geometry.intersect import INF
 from ..ops import bvh as ops_bvh
 from ..ops import sweep as ops_sweep
 from ..scene.model import MESH, PLANE, SPHERE, SceneFlat, _GatherRows
@@ -272,10 +274,90 @@ def _refit(scene: SceneFlat, lay, origins, dirs, times, prim, tri):
     return torch.where(found, t, INF), torch.where(found[:, None], n, 0.0)
 
 
-def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
-    """Closest hit over all primitives. origins/dirs (R, 3), times (R,)."""
+@dataclasses.dataclass(frozen=True)
+class BigHits:
+    """The big-mesh batch's result against the best hit so far (R,) each:
+    ``hit``, the walk found a triangle under the best t; ``closer``, its
+    re-intersection (``t``) is > 0 and under the best t too, so it
+    replaces the best hit. Lanes with ``hit & ~closer`` are the walk's hits
+    that the refit drops (a ray through a seam of two triangles)."""
+
+    hit: torch.Tensor
+    closer: torch.Tensor
+    t: torch.Tensor
+    prim: torch.Tensor
+    normal: torch.Tensor
+
+
+def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits:
+    """Every big-mesh primitive as ONE batch of (instance, ray) lanes walked
+    by kernel K3 with ``best_t`` as the bound (the shortlist rounds above
+    ``INSTANCE_TOPK_MIN`` instances), then the winning triangle intersected
+    again under autograd with the walk's own formula (``tri_refit``). The
+    JAX package takes ``intersect_ray_tri`` there, which at a seam can miss
+    a triangle that the walk hit, and drops that ray."""
     r = origins.shape[0]
     dev = origins.device
+    idxs = list(lay.big)
+    handles = [scene.prim_static[i].mesh for i in idxs]
+    n_inst = len(idxs)
+    tr_b, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
+    inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
+    noff, toff, slots = _offsets(handles, dev)
+
+    # the discrete search for the winning triangle runs without grad
+    with torch.no_grad():
+        tmax_b = torch.broadcast_to(best_t[None, :], (n_inst, r))
+        may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
+        tmax_i = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
+        o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
+        if n_inst <= INSTANCE_TOPK_MIN:
+            t_f, tri_f = ops_bvh.closest_hit(
+                scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
+                o_f, d_f, tmax_i, slots,
+            )
+            # local t equals world t (uniform scale folds into |d_l|)
+            t_i = t_f.reshape(n_inst, r)
+            tri_i = tri_f.reshape(n_inst, r)
+            t_min = t_i.min(dim=0).values
+            inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
+            inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
+            tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
+        else:
+            t_min, tri, inst = _instance_rounds(
+                scene, o_l, d_l, tn, best_t, noff, toff, slots
+            )
+        hit = torch.isfinite(t_min) & (t_min < best_t)
+
+    # winning instance's local ray + rotation, then a differentiable
+    # re-intersection at the found triangle
+    onehot = (inst_ids == inst[None, :]).to(torch.float32)  # (I, R)
+    ow = (onehot[..., None] * o_l).sum(dim=0)
+    dw = (onehot[..., None] * d_l).sum(dim=0)
+    qw = (onehot[..., None] * tr_b.q).sum(dim=0)
+
+    gt = toff.long()[inst] + torch.clamp(tri, min=0).long()
+    v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
+    n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
+    # the walk's own formula, so t is the walk's bit for bit and a hit at
+    # a seam of two triangles is kept
+    _, t, u, v, w, n_geo = tri_refit(v0.unbind(-1), v1.unbind(-1), v2.unbind(-1),
+                                     ow.unbind(-1), dw.unbind(-1))
+    n_geo = torch.stack(n_geo, -1)
+    t = torch.where(hit & (tri >= 0), t, INF)
+    ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
+    # keep the smooth normal on the geometric side
+    ns = ns * torch.where(dot(ns, n_geo) < 0.0, -1.0, 1.0)[..., None]
+    n = safe_normalize(
+        quat_rotate(qw, ns), fallback=safe_normalize(quat_rotate(qw, n_geo))
+    )
+    prim_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)[inst]
+    closer = hit & (t > 0.0) & (t < best_t)
+    return BigHits(hit=hit, closer=closer, t=t, prim=prim_ids, normal=n)
+
+
+def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
+    """Closest hit over all primitives. origins/dirs (R, 3), times (R,)."""
     lay = layout(scene.prim_static)
     # the discrete search (kernel K5c on the card), then the winner again
     # under autograd
@@ -283,61 +365,10 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     best_t, best_n = _refit(scene, lay, origins, dirs, times, best_prim, tri)
 
     if lay.big:
-        idxs = list(lay.big)
-        handles = [scene.prim_static[i].mesh for i in idxs]
-        n_inst = len(idxs)
-        tr_b, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
-        inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
-        noff, toff, slots = _offsets(handles, dev)
-
-        # the discrete search for the winning triangle runs without grad
-        with torch.no_grad():
-            tmax_b = torch.broadcast_to(best_t[None, :], (n_inst, r))
-            may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
-            tmax_i = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
-            o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
-            if n_inst <= INSTANCE_TOPK_MIN:
-                t_f, tri_f = ops_bvh.closest_hit(
-                    scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
-                    o_f, d_f, tmax_i, slots,
-                )
-                # local t equals world t (uniform scale folds into |d_l|)
-                t_i = t_f.reshape(n_inst, r)
-                tri_i = tri_f.reshape(n_inst, r)
-                t_min = t_i.min(dim=0).values
-                inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
-                inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
-                tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
-            else:
-                t_min, tri, inst = _instance_rounds(
-                    scene, o_l, d_l, tn, best_t, noff, toff, slots
-                )
-            hit = torch.isfinite(t_min) & (t_min < best_t)
-
-        # winning instance's local ray + rotation, then a differentiable
-        # re-intersection at the found triangle
-        onehot = (inst_ids == inst[None, :]).to(torch.float32)  # (I, R)
-        ow = (onehot[..., None] * o_l).sum(dim=0)
-        dw = (onehot[..., None] * d_l).sum(dim=0)
-        qw = (onehot[..., None] * tr_b.q).sum(dim=0)
-
-        gt = toff.long()[inst] + torch.clamp(tri, min=0).long()
-        v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
-        n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
-        _, t, u, v, w, n_geo = intersect_ray_tri(v0, v1, v2, ow, dw)
-        t = torch.where(hit & (tri >= 0), t, INF)
-        ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
-        # keep the smooth normal on the geometric side
-        ns = ns * torch.where(dot(ns, n_geo) < 0.0, -1.0, 1.0)[..., None]
-        n = safe_normalize(
-            quat_rotate(qw, ns), fallback=safe_normalize(quat_rotate(qw, n_geo))
-        )
-
-        prim_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)[inst]
-        closer = hit & (t > 0.0) & (t < best_t)
-        best_t = torch.where(closer, t, best_t)
-        best_prim = torch.where(closer, prim_ids, best_prim)
-        best_n = torch.where(closer[..., None], n, best_n)
+        big = _big_closest(scene, lay, origins, dirs, times, best_t)
+        best_t = torch.where(big.closer, big.t, best_t)
+        best_prim = torch.where(big.closer, big.prim, best_prim)
+        best_n = torch.where(big.closer[..., None], big.normal, best_n)
 
     best_n = face_forward(best_n, -dirs)
     return Hit(t=best_t, prim=best_prim, normal=best_n)
