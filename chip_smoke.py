@@ -28,8 +28,9 @@ Phases, each fatal on failure (exit code 1):
    through a kept copy of the torch-op sweep (``old_trace_closest``,
    ``old_trace_any``) and through K5c / K5a, in turns: device ms,
    launches, wall ms, the pass's idle share, K5's device ms from CUDA
-   events around each launch beside the profiler's record of the same
-   launches (a mismatch between events and the wrappers' counts fails);
+   events around each launch (in a run of the same work after the
+   profiled one) beside the profiler's record of its launches (a
+   mismatch between events and the wrappers' counts fails);
    the profiler's record of a lone K5a launch, with and without a kernel
    before it in the session; then the sweep kernels K5c (closest hit)
    and K5a (occlusion) against their plain versions on captured inputs,
@@ -1713,43 +1714,54 @@ SPIN_CYCLES = 200_000  # torch.cuda._sleep: ~0.1 ms of the card at 1.98 GHz
 def profiled(run, warm: bool = True):
     """One run under the profiler: device busy ms and kernel launches in
     all, of the walk kernels (bvh_*) and of the sweep kernels (sweep_*,
-    also timed by CUDA events around each launch, ``sweep_spans``), and
-    its wall ms there. ``warm``: a spin kernel runs first inside the
+    beside the launches their wrappers counted in that run,
+    ``profiled_run_counted``), and its wall ms there. Then the run again
+    outside the profiler, its sweep launches timed by CUDA events
+    (``sweep_spans``): their spin kernels stay out of the profiled run's
+    wall and idle share. ``warm``: a spin kernel runs first inside the
     session and is left out of the records (see ``profiler_probe``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+
     torch.cuda.synchronize()
+    before = dict(ops_sweep.launch_counts)
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if warm:
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        with sweep_spans(spin=warm) as spans:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    counted = {k: ops_sweep.launch_counts[k] - before[k] for k in before}
     events = [(k, ms) for k, ms in device_events(prof) if "spin_kernel" not in k]
     walks = [ms for key, ms in events if "bvh_" in key]
     sweeps = [ms for key, ms in events if "sweep_" in key]
     busy = sum(ms for _, ms in events)
     if busy <= 0 and warm:
         fail("the profiler recorded no device time")
+    with torch.no_grad(), sweep_spans() as spans:
+        run()
+    if sum(counted.values()) != spans["counted"]:
+        fail(f"profiled: {counted} sweep launches under the profiler, {spans['counted']} "
+             "in the same work timed by events")
     return dict(device_ms=busy, launches=len(events),
                 walk_device_ms=sum(walks), walk_launches=len(walks),
-                sweep_device_ms=spans["device_ms"], sweep_launches=spans["launches"],
-                sweep_launches_counted=spans["counted"],
                 profiler_sweep_launches=len(sweeps), profiler_sweep_device_ms=sum(sweeps),
-                profiled_wall_ms=wall)
+                profiled_run_counted=counted, profiled_wall_ms=wall,
+                sweep_device_ms=spans["device_ms"], sweep_launches=spans["launches"],
+                sweep_launches_counted=spans["counted"])
 
 
 @contextlib.contextmanager
-def sweep_spans(spin: bool = True):
-    """CUDA events around each K5c / K5a launch inside the block (``spin``:
-    a spin kernel first, so the card is still busy when the host reaches
-    the launch and the pair times the kernel, not the host's dispatch).
-    Yields a dict filled on exit: the spans' launches and device ms and
-    the launches the wrappers counted; fails when the events and the
-    wrappers' counts differ."""
+def sweep_spans():
+    """CUDA events around each K5c / K5a launch inside the block, a spin
+    kernel before each launch, so the card is still busy when the host
+    reaches the launch and the pair times the kernel, not the host's
+    dispatch. Yields a dict filled on exit: the spans' launches and device
+    ms and the launches the wrappers counted; fails when the events and
+    the wrappers' counts differ."""
     from tinsel_tpu_torch.ops import sweep as ops_sweep
 
     spans, out = [], {}
@@ -1763,8 +1775,7 @@ def sweep_spans(spin: bool = True):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             for e in (start, end):  # created (at their first record) before the spin
                 e.record()
-            if spin:
-                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(SPIN_CYCLES)
             start.record()
             err = fn(*args)
             end.record()
@@ -1953,13 +1964,13 @@ def trace_ab_phase(dev):
     the kept torch-op copy (``old_trace_closest`` / ``old_trace_any``) and
     through kernels K5c / K5a, in turns (old, new, new, old): device ms and
     launches from the profiler, the sweep kernels' device ms from CUDA
-    events around each launch (``sweep_spans``) beside the profiler's
-    record of them, the call's wall ms under CUDA events, the sweep
-    kernels' launches as their wrappers count them; then one whole Cornell
-    pass each way, its launches and idle share (profiled); then
-    ``profiler_probe`` on the trace_any call."""
+    events around each launch (``sweep_spans``, a run of its own) beside
+    the profiler's record of them, the call's wall ms under CUDA events,
+    the sweep kernels' launches as their wrappers count them; then one
+    whole Cornell pass each way, its launches and idle share (profiled,
+    no spin kernel inside the profiled run); then ``profiler_probe`` on
+    the trace_any call."""
     from tinsel_tpu_torch.core.sampling import PathUniforms
-    from tinsel_tpu_torch.ops import sweep as ops_sweep
     from tinsel_tpu_torch.render import integrator, lights, trace
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
@@ -1973,14 +1984,13 @@ def trace_ab_phase(dev):
         return flat
 
     def timed(fn, args, kw):
-        before = dict(ops_sweep.launch_counts)
         prof = profiled(lambda: fn(*args, **kw))
-        sweeps = {k: ops_sweep.launch_counts[k] - before[k] for k in before}
         with torch.no_grad():
             fn(*args, **kw)
             wall = _event_ms(lambda: fn(*args, **kw), 1)
         return dict(device_ms=prof["device_ms"], launches=prof["launches"],
-                    sweep_launches_counted=sweeps, sweep_launches=prof["sweep_launches"],
+                    sweep_launches_counted=prof["profiled_run_counted"],
+                    sweep_launches=prof["sweep_launches"],
                     sweep_device_ms=prof["sweep_device_ms"],
                     profiler_sweep_launches=prof["profiler_sweep_launches"],
                     profiler_sweep_device_ms=prof["profiler_sweep_device_ms"],
@@ -2048,10 +2058,10 @@ def profiler_probe(call, reps: int = 8) -> dict:
     """How often torch.profiler records the one sweep kernel of ``call``
     (a trace_any call: K5a is its only kernel) in a session of its own,
     ``reps`` sessions each way: cold (the call is the session's first
-    device work; its events then also time the host's dispatch) and warm
-    (a spin kernel runs first in the session and before the launch, as
-    ``profiled`` does). The kernel's launches and device ms from CUDA
-    events stand beside (``sweep_spans``)."""
+    device work) and warm (a spin kernel runs first in the session, as
+    ``profiled`` does by default). The kernel's launches and device ms
+    from CUDA events, in a run of the call's own after each session
+    (``sweep_spans``), stand beside."""
     out = {}
     for how in ("cold", "warm"):
         runs = [profiled(call, warm=how == "warm") for _ in range(reps)]

@@ -18,9 +18,9 @@ the last block part-filled; axis-aligned directions; tmax 0, -0.0, NaN and
 +inf; a scene with nothing to sweep. Around the persistent grid: ray counts
 of 1, a tile - 1 and + 1, fewer tiles than resident blocks and several
 strides of the grid; the synthetic table cut into 600-float chunks (groups
-split across chunks, two buffers taking turns over tiles); warps whose rays
-are all, none or some occluded (K5a's per-warp exit). A launch whose
-shared memory is above the card's opt-in limit raises.
+split across chunks, two buffers taking turns over tiles); K5a on warps
+whose rays are all, none or some occluded. A launch whose shared memory
+is above the card's opt-in limit raises.
 """
 
 import os
@@ -284,10 +284,10 @@ def test_table_of_many_small_chunks(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_warps_with_all_none_or_some_rays_occluded(cuda):
-    """K5a's per-warp exit: runs of 64 rays (one warp's) whose segments
-    all reach far (occluded by the box's walls), all end at once (tmax
-    1e-4: none occluded), or alternate; the kernel's bits equal the plain
-    version's on every lane."""
+    """K5a on warps of uniform and of mixed occlusion: runs of 64 rays (one
+    warp's) whose segments all reach far (occluded by the box's walls),
+    all end at once (tmax 1e-4: none occluded), or alternate; the kernel's
+    bits equal the plain version's on every lane."""
     flat = presets.cornell_scene(64, 64, 4).flatten(device=cuda)
     rng = np.random.default_rng(6)
     n = 64 * 300

@@ -47,9 +47,9 @@
 // the arithmetic, and one dependent chain a thread.
 //
 // The design:
-// - RAYS rays a thread (consecutive, read and written as vectors): each
+// - Two rays a thread (consecutive, read and written as vectors): each
 //   record's fields come from shared memory once for all of them, and
-//   the RAYS tests are independent chains that hide each other's shared
+//   two tests are independent chains that hide each other's shared
 //   load, divide and square-root latencies.
 // - Runs with trip counts from the chunk header: no kind load or branch
 //   per record. The host precomputes what has the same bits in numpy as
@@ -67,16 +67,15 @@
 //   of up to SMEM_FLOATS, or two buffers of up to CHUNK_FLOATS), above
 //   the 48 KB that needs no opt-in, and two blocks fit an SM.
 // - Blocks wait together only to restage a chunk of a table of several.
-//   K5a can leave a chunk per warp once all its rays are occluded
-//   (SWEEP_WARP_EXIT), but the vote cost more than it saved on every
-//   case measured, so it is off.
+//   A warp of K5a whose rays are all occluded sweeps on: a vote to let
+//   it leave cost more than it saved on every case measured (PERF.md).
 // - K5c loads the next tile's rays while it sweeps a tile (about 8
 //   registers; 2-3 % on Cornell); K5a is held to 80 registers, 3 blocks
 //   an SM, where the same prefetch would spill.
 // - Each kernel is built for static tables and for tables with motion
 //   (times NULL or not), so a static scene carries no interpolation code.
-// Measured (sweep_ab.py against the first design in one run, H100 80GB
-// HBM3 at 700 W): 0.35-0.42 of the bound on Cornell's 1M-ray calls
+// Measured (against the first design in one run, H100 80GB HBM3 at
+// 700 W; PERF.md): 0.35-0.42 of the bound on Cornell's 1M-ray calls
 // (first design 0.26-0.33), 0.16-0.23 on veach_mis.json, 0.20-0.22 on
 // a 2,000-sphere, 300-instance table of three chunks. What holds it
 // there: dependent IEEE divide and square-root chains at 16 (K5c, 107
@@ -93,48 +92,15 @@
 
 #include <mutex>
 
-#ifndef SWEEP_RAYS
-#define SWEEP_RAYS 2
-#endif
-#ifndef SWEEP_THREADS
-#define SWEEP_THREADS 256
-#endif
-#ifndef SWEEP_PERSISTENT
-#define SWEEP_PERSISTENT 1
-#endif
-// load the next tile's rays while a tile is swept (K5c: 10-20 registers
-// that K5a's three blocks an SM cannot spare)
-#ifndef SWEEP_CLOSEST_PREFETCH
-#define SWEEP_CLOSEST_PREFETCH 1
-#endif
-#ifndef SWEEP_ANY_PREFETCH
-#define SWEEP_ANY_PREFETCH 0
-#endif
-// resident blocks an SM that ptxas is asked to fit (registers a thread at
-// most 65536 / (THREADS * blocks))
-#ifndef SWEEP_CLOSEST_BLOCKS
-#define SWEEP_CLOSEST_BLOCKS 1
-#endif
-#ifndef SWEEP_ANY_BLOCKS
-#define SWEEP_ANY_BLOCKS 3
-#endif
-// K5a: where a warp asks whether all its rays are occluded, and leaves
-// the chunk if they are: 0 never (the vote costs more than it saves on
-// every case measured), 1 after every record, 2 at the end of each run
-#ifndef SWEEP_WARP_EXIT
-#define SWEEP_WARP_EXIT 0
-#endif
-
 namespace {
 
-constexpr int THREADS = SWEEP_THREADS;
-constexpr int RAYS = SWEEP_RAYS;  // rays a thread
+constexpr int THREADS = 256;
+constexpr int RAYS = 2;  // rays a thread (read and written as pairs)
 constexpr int TILE = THREADS * RAYS;
 constexpr int HEAD = 4, SPHERE_STATIC = 4, SPHERE_MOVING = 12, PLANE_LEN = 4;
 constexpr int GROUP_HEAD = 12, TRI_LEN = 12, INSTANCE_STATIC = 8, INSTANCE_MOVING = 16;
 enum : int { SPHERES_MOVE = 1 };
 enum : int { OPENS = 1, CLOSES = 2, MOVES = 4 };
-constexpr unsigned FULL = 0xffffffffu;
 
 struct V3 {
   float x, y, z;
@@ -281,18 +247,12 @@ struct Rays {
 };
 
 // Thread x of a tile holds rays first .. first + RAYS - 1; a full set is
-// read with vector loads (RAYS * 12 bytes of origins: 8-byte aligned for
-// an even RAYS, 16 for a multiple of 4)
+// read with 8-byte loads (first is even)
 template <int N>
 __device__ __forceinline__ void load_floats(const float* __restrict__ p, float (&v)[N], bool full,
                                             int valid) {
-  if (full && N % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < N / 4; ++k) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + k);
-      v[4 * k] = a.x, v[4 * k + 1] = a.y, v[4 * k + 2] = a.z, v[4 * k + 3] = a.w;
-    }
-  } else if (full && N % 2 == 0) {
+  static_assert(N % 2 == 0, "a full set is read as float2");
+  if (full) {
 #pragma unroll
     for (int k = 0; k < N / 2; ++k) {
       const float2 a = __ldg(reinterpret_cast<const float2*>(p) + k);
@@ -594,19 +554,11 @@ struct Closest {
 
   __device__ __forceinline__ void end() {
     const int valid = min(RAYS, n - first);
-    if constexpr (RAYS % 2 == 0) {
-      if (valid == RAYS) {  // 8-byte stores: first is a multiple of RAYS
-#pragma unroll
-        for (int k = 0; k < RAYS / 2; ++k) {
-          reinterpret_cast<float2*>(t_out + first)[k] =
-              make_float2(best_t[2 * k], best_t[2 * k + 1]);
-          reinterpret_cast<int2*>(prim_out + first)[k] =
-              make_int2(best_prim[2 * k], best_prim[2 * k + 1]);
-          reinterpret_cast<int2*>(tri_out + first)[k] =
-              make_int2(best_tri[2 * k], best_tri[2 * k + 1]);
-        }
-        return;
-      }
+    if (valid == RAYS) {  // 8-byte stores: first is even
+      *reinterpret_cast<float2*>(t_out + first) = make_float2(best_t[0], best_t[1]);
+      *reinterpret_cast<int2*>(prim_out + first) = make_int2(best_prim[0], best_prim[1]);
+      *reinterpret_cast<int2*>(tri_out + first) = make_int2(best_tri[0], best_tri[1]);
+      return;
     }
 #pragma unroll
     for (int j = 0; j < RAYS; ++j) {
@@ -651,25 +603,7 @@ struct Any {
     }
   }
 
-  // every ray of the thread occluded, or past the last ray
-  __device__ __forceinline__ bool done() const {
-    const int valid = min(RAYS, n - first);
-    bool all = true;
-#pragma unroll
-    for (int j = 0; j < RAYS; ++j) all &= occ[j] || j >= valid;
-    return all;
-  }
-
-  // the warp's rays all occluded, asked after a record / after a run
-  __device__ __forceinline__ bool record_done() const {
-    return SWEEP_WARP_EXIT == 1 && __all_sync(FULL, done());
-  }
-  __device__ __forceinline__ bool run_done() const {
-    return SWEEP_WARP_EXIT != 0 && __all_sync(FULL, done());
-  }
-
   __device__ __forceinline__ void chunk(const float* rec) {
-    if (run_done()) return;
     const int4 head = *reinterpret_cast<const int4*>(rec);
     const int ns = head.x, np = head.y, ng = head.z;
     const float4* recs = reinterpret_cast<const float4*>(rec + HEAD + pad4(ns));
@@ -683,7 +617,6 @@ struct Any {
           float t;
           occ[j] |= sphere_hit(ctr, c.x * (a.w + b.w * tm), r.o[j], r.d[j], t) && t < tmax[j];
         }
-        if (record_done()) return;
       }
     } else {
       for (int k = 0; k < ns; ++k) {
@@ -693,10 +626,8 @@ struct Any {
           float t;
           occ[j] |= sphere_hit(xyz(a), a.w, r.o[j], r.d[j], t) && t < tmax[j];
         }
-        if (record_done()) return;
       }
     }
-    if (run_done()) return;
     const int sl = MOTION && (head.w & SPHERES_MOVE) ? SPHERE_MOVING : SPHERE_STATIC;
     const float* p = rec + HEAD + pad4(ns) + sl * ns;
     recs = reinterpret_cast<const float4*>(p + pad4(np));
@@ -707,16 +638,11 @@ struct Any {
         float t;
         occ[j] |= plane_hit(pl, r.o[j], r.d[j], t) && t < tmax[j];
       }
-      if (record_done()) return;
     }
     p += pad4(np) + PLANE_LEN * np;
-    for (int gi = 0; gi < ng && !run_done(); ++gi) {
-      p = group(p);
-      if (p == nullptr) return;
-    }
+    for (int gi = 0; gi < ng; ++gi) p = group(p);
   }
 
-  // nullptr once the warp is done
   __device__ __forceinline__ const float* group(const float* g) {
     const int4 head = *reinterpret_cast<const int4*>(g);
     const float4 lo = reinterpret_cast<const float4*>(g)[1];
@@ -767,7 +693,6 @@ struct Any {
           if (!left) break;
         }
       }
-      if (record_done()) return nullptr;
     }
     return g + GROUP_HEAD + TRI_LEN * nt + pad4(ni) +
            (moves ? INSTANCE_MOVING : INSTANCE_STATIC) * ni;
@@ -775,17 +700,9 @@ struct Any {
 
   __device__ __forceinline__ void end() {
     const int valid = min(RAYS, n - first);
-    if constexpr (RAYS == 2 || RAYS == 4) {
-      if (valid == RAYS) {  // one store: RAYS bytes at a multiple of RAYS
-        uint32_t bits = 0;
-#pragma unroll
-        for (int j = 0; j < RAYS; ++j) bits |= (uint32_t)occ[j] << (8 * j);
-        if constexpr (RAYS == 2)
-          *reinterpret_cast<uint16_t*>(occ_out + first) = (uint16_t)bits;
-        else
-          *reinterpret_cast<uint32_t*>(occ_out + first) = bits;
-        return;
-      }
+    if (valid == RAYS) {  // one 2-byte store: first is even
+      *reinterpret_cast<uint16_t*>(occ_out + first) = (uint16_t)(occ[0] | (occ[1] << 8));
+      return;
     }
 #pragma unroll
     for (int j = 0; j < RAYS; ++j)
@@ -793,8 +710,10 @@ struct Any {
   }
 };
 
+// K5c: the next tile's rays in flight; K5a: held to 3 blocks an SM (80
+// registers), where that prefetch would spill
 template <bool MOTION>
-__global__ void __launch_bounds__(THREADS, SWEEP_CLOSEST_BLOCKS)
+__global__ void __launch_bounds__(THREADS, 1)
 sweep_closest_kernel(const float* __restrict__ table, const int* __restrict__ chunks,
                      int n_chunks, int chunk_floats, const float* __restrict__ origins,
                      const float* __restrict__ dirs, const float* __restrict__ times, int n,
@@ -805,11 +724,11 @@ sweep_closest_kernel(const float* __restrict__ table, const int* __restrict__ ch
   Closest<MOTION> sweep;
   sweep.origins = origins, sweep.dirs = dirs, sweep.times = times, sweep.n = n;
   sweep.t_out = t_out, sweep.prim_out = prim_out, sweep.tri_out = tri_out;
-  tiles<SWEEP_CLOSEST_PREFETCH>(rec, bars, table, chunks, n_chunks, chunk_floats, n, sweep);
+  tiles<true>(rec, bars, table, chunks, n_chunks, chunk_floats, n, sweep);
 }
 
 template <bool MOTION>
-__global__ void __launch_bounds__(THREADS, SWEEP_ANY_BLOCKS)
+__global__ void __launch_bounds__(THREADS, 3)
 sweep_any_kernel(const float* __restrict__ table, const int* __restrict__ chunks, int n_chunks,
                  int chunk_floats, const float* __restrict__ origins, const float* __restrict__ dirs,
                  const float* __restrict__ times, const float* __restrict__ tmaxs, int n,
@@ -819,7 +738,7 @@ sweep_any_kernel(const float* __restrict__ table, const int* __restrict__ chunks
   Any<MOTION> sweep;
   sweep.origins = origins, sweep.dirs = dirs, sweep.times = times, sweep.tmaxs = tmaxs;
   sweep.n = n, sweep.occ_out = occ_out;
-  tiles<SWEEP_ANY_PREFETCH>(rec, bars, table, chunks, n_chunks, chunk_floats, n, sweep);
+  tiles<false>(rec, bars, table, chunks, n_chunks, chunk_floats, n, sweep);
 }
 
 // Per device and kernel: the card's opt-in limit and SM count, the shared
@@ -872,14 +791,12 @@ int geometry(K kernel, int which, int n_chunks, int chunk_floats, int n, int& gr
     c.per_sm[which] = per_sm;
   }
   const int n_tiles = (n + TILE - 1) / TILE, slots = c.sms * c.per_sm[which];
-  grid = SWEEP_PERSISTENT && slots < n_tiles ? slots : n_tiles;
+  grid = slots < n_tiles ? slots : n_tiles;
   return 0;
 }
 
 }  // namespace
 
-// The launch geometry a call would take: tile (rays a block sweeps at a
-// time) and grid; returns 0, or the launch's error code.
 // The launch geometry a call would take: tile (rays a block sweeps at a
 // time) and grid; returns 0, or the launch's error code.
 extern "C" int tinsel_sweep_geometry(int closest, int motion, int n_chunks, int chunk_floats,
