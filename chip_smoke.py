@@ -130,7 +130,24 @@ Phases, each fatal on failure (exit code 1):
     gloo stage ranks running the pipeline at ``n_micro`` 1 and 4. Images
     within rtol 2e-5 / atol 2e-6 of the unsharded sum, equal on every
     rank; the loss within rtol 1e-4 and the gradients within rtol 2e-3 /
-    atol 2e-5; the pipeline within atol 1e-5 of ``path_trace``.
+    atol 2e-5; the pipeline within atol 1e-5 of ``path_trace``;
+15. the JAX package's module switches, each flipped on the port's module
+    and back in a ``finally`` (``switched``): ``STATIC_TRANSFORM_HOIST``
+    off (``hoist_off_part``: K5c / K5a against plain on a Cornell 512x512
+    depth-4 pass and on motionblur.tin with every record moving, t bit for
+    bit, the table's size beside the hoisted one, the refit's t equal to
+    the sweep's, the card against the CPU, end_p gradients);
+    ``NEE_CLOSEST_SHADOW`` on (``closest_shadow_part``: the Cornell main
+    path with its launch counts checked against those the code implies,
+    its ms per spp beside the switch off, many_mesh's K3 calls through the
+    shortlist rounds against the plain walk, the card against the CPU on
+    "all" and "power"); ``MESH_VERTEX_GRADS`` on (``vertex_grads_part``:
+    card against CPU gradients of the vertex planes, the 512x512 gradient
+    step on Cornell and envmesh against the switch off, the vertex
+    backward's share and its candidate backwards on the step's own
+    gathers); and the gradient of the probe's texels (``probe_texels_part``:
+    the probe-lit envmesh's step with and without ``ProbeFlat.data`` as a
+    leaf, profiled).
 
 The 524k sphere's tree (phase 6) comes from the native builder.
 
@@ -701,22 +718,24 @@ def sweep_stress_scene(seed: int = 5):
     return sc
 
 
-def check_sweep(ops_sweep, name, flat, args, tag):
+def check_sweep(ops_sweep, name, flat, args, tag, hoist: bool = True):
     """K5c or K5a against its plain version on the same card inputs: the
     winners (prim, tri) or the occlusion bit equal on every lane and t
-    equal bit for bit; timed by CUDA-graph replays; returns the record."""
+    equal bit for bit; timed by CUDA-graph replays; returns the record.
+    ``hoist``: the setting of ``render/trace.py::STATIC_TRANSFORM_HOIST``
+    the table is packed for."""
     from tinsel_tpu_torch.accel import sweep as plain
 
     closest = name == "sweep_closest"
     kernel = ops_sweep.sweep_closest_cuda if closest else ops_sweep.sweep_any_cuda
     plain_fn = plain.sweep_closest if closest else plain.sweep_any
     before = ops_sweep.launch_counts[name]
-    out = kernel(flat, *args)
+    out = kernel(flat, *args, hoist=hoist)
     torch.cuda.synchronize()
     if ops_sweep.launch_counts[name] != before + 1:
         fail(f"{name} {tag}: the wrapper did not count its launch")
     stats = {}
-    ref = plain_fn(flat, *args, stats=stats)
+    ref = plain_fn(flat, *args, stats=stats, hoist=hoist)
     rays = args[0].shape[0]
     if closest:
         (t, prim, tri), (t_ref, prim_ref, tri_ref) = out, ref
@@ -732,14 +751,14 @@ def check_sweep(ops_sweep, name, flat, args, tag):
     sets = copies(args, sum(a.numel() * a.element_size() for a in args))
 
     def run(*a):
-        return kernel(flat, *a)
+        return kernel(flat, *a, hoist=hoist)
 
     kernel_ms = device_ms(run, sets)
     kernel_call_ms = call_ms(run, sets)
-    plain_ms = _event_ms(lambda: plain_fn(flat, *args), 1)
-    work = sweep_work(flat, stats, closest)
+    plain_ms = _event_ms(lambda: plain_fn(flat, *args, hoist=hoist), 1)
+    work = sweep_work(flat, stats, closest, hoist)
     bound_ms, bound_by = bound(work)
-    tab = ops_sweep.table(flat, args[0].device)
+    tab = ops_sweep.table(flat, args[0].device, hoist)
     tile, grid = ops_sweep.launch_geometry(name, tab, rays)
     rec = dict(
         kernel=name, shape=tag, rays=rays, hit_share=hit_share, mismatched=mismatched,
@@ -1279,15 +1298,7 @@ def gradient_equal_draw_phase(dev):
                 )
                 res.append((float(loss), {k: v.cpu() for k, v in _grad_leaves(grads).items()}))
             (la, ga), (lb, gb) = res
-            # a leaf whose gradient is zero in exact arithmetic holds the
-            # rounding noise of sums that cancel (envmesh at depth 1 sees
-            # only the sky, a function of the ray direction: its camera-
-            # position gradient is +g - g over every pixel, measured 3e-8
-            # of the largest leaf); leaves under 1e-3 of the largest
-            # gradient of any leaf are held against that instead
-            floor = 1e-3 * max(float(g.abs().max()) for g in gb.values())
-            dev_norm = {k: float((ga[k] - gb[k]).abs().max())
-                        / max(float(gb[k].abs().max()), floor, 1e-30) for k in gb}
+            dev_norm = grad_devs(ga, gb)
             worst = max(dev_norm, key=dev_norm.get)
             rec = dict(phase="grad_gpu_vs_cpu_equal_draws", scene=f"{name} 64x64 d{depth} 1spp",
                        fatal=depth == 1, loss_rel_diff=abs(la - lb) / abs(lb), worst_leaf=worst,
@@ -1295,6 +1306,19 @@ def gradient_equal_draw_phase(dev):
             emit(rec)
             if depth == 1 and (rec["loss_rel_diff"] > 1e-5 or dev_norm[worst] > GRAD_TOL):
                 fail(f"card and CPU gradients disagree at equal draws: {rec}")
+
+
+def grad_devs(ga, gb) -> dict:
+    """{leaf: max |ga - gb| over the largest |gb|} of two gradient dicts.
+    A leaf whose gradient is zero in exact arithmetic holds the rounding
+    noise of sums that cancel (envmesh at depth 1 sees only the sky, a
+    function of the ray direction: its camera-position gradient is +g - g
+    over every pixel, measured 3e-8 of the largest leaf); leaves under
+    1e-3 of the largest gradient of any leaf are held against that
+    instead."""
+    floor = 1e-3 * max(float(g.abs().max()) for g in gb.values())
+    return {k: float((ga[k] - gb[k]).abs().max()) / max(float(gb[k].abs().max()), floor, 1e-30)
+            for k in gb}
 
 
 def _old_select(self, i):
@@ -1797,7 +1821,7 @@ def sweep_spans():
         fail(f"sweep spans: {len(spans)} launches timed by events, {counted} counted")
 
 
-def sweep_work(flat, stats, closest: bool):
+def sweep_work(flat, stats, closest: bool, hoist: bool = True):
     """(bytes, f32 operations) of K5c / K5a on one call's rays, counted
     from the plain sweep on the same inputs (``stats``): each ray's origin
     and direction in (its time where some row moves, its tmax for K5a),
@@ -1808,10 +1832,10 @@ def sweep_work(flat, stats, closest: bool):
     from tinsel_tpu_torch.accel.sweep import layout
     from tinsel_tpu_torch.ops.sweep import pack_records
 
-    lay = layout(flat.prim_static)
+    lay = layout(flat.prim_static, hoist)
     motion = lay.sphere_motion or any(g.motion for g in lay.groups)
     per_ray = 24 + (4 if motion else 0) + (12 if closest else 5)
-    nbytes = stats["rays"] * per_ray + 4 * pack_records(flat)[0].size
+    nbytes = stats["rays"] * per_ray + 4 * pack_records(flat, hoist=hoist)[0].size
     sphere = SPHERE_OPS + (MOTION_SPHERE_OPS if lay.sphere_motion else 0)
     ops = (stats.get("sphere_tests", 0) * sphere + stats.get("plane_tests", 0) * PLANE_OPS
            + stats.get("instance_tests", 0) * INSTANCE_OPS
@@ -3227,6 +3251,583 @@ def multi_gpu_phase(dev, tmp: Path) -> dict:
     return launches, walk_err
 
 
+# ------------------------------------------- phase 15: the module switches
+
+
+@contextlib.contextmanager
+def switched(module, name: str, value):
+    """``module.name = value`` for the body, restored in a ``finally``."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+# The candidate backwards of a vertex-plane gather (``accel/traverse.py::
+# _GatherPlanes``): each sums the (N, 9) lane gradients g into the (rows,
+# 9) planes at the lanes' rows ``flat``.
+def _scatter_onehot(flat, g, rows):
+    """One (rows, N) x (N, 9) matmul (``_GatherRows``'s backward)."""
+    return (flat[None, :] == torch.arange(rows, device=flat.device)[:, None]).to(g.dtype) @ g
+
+
+def _scatter_index_add(flat, g, rows):
+    """``index_add_``: an atomic add a lane on the card."""
+    return torch.zeros((rows, g.shape[1]), dtype=g.dtype, device=g.device).index_add_(0, flat, g)
+
+
+def _scatter_sorted(flat, g, rows):
+    """A sorted segment sum: the lanes sorted by row, an f64 prefix sum,
+    each row's sum the difference at its bounds (no atomics, no sync)."""
+    s, order = torch.sort(flat)
+    # the scan along the innermost dimension (a scan along dim 0 of an
+    # (N, 9) tensor runs one thread a column)
+    c = torch.cumsum(g.index_select(0, order).t().double(), 1)
+    c = torch.cat([c.new_zeros((g.shape[1], 1)), c], 1)
+    bounds = torch.searchsorted(s, torch.arange(rows + 1, device=flat.device))
+    return (c[:, bounds[1:]] - c[:, bounds[:-1]]).t().to(g.dtype)
+
+
+def _scatter_index_put(flat, g, rows):
+    """Advanced indexing's backward, the accumulating ``index_put``."""
+    out = torch.zeros((rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    return out.index_put_((flat,), g, accumulate=True)
+
+
+SCATTERS = {"onehot": _scatter_onehot, "index_add": _scatter_index_add,
+            "sorted": _scatter_sorted, "index_put": _scatter_index_put}
+ONEHOT_MAX_ELEMS = 1 << 30  # (rows x N) one-hot tables larger than 4 GiB are not tried
+
+
+def vertex_backward_candidates(regimes, what: str):
+    """Each candidate backward of a vertex-plane gather on each regime
+    (name, (N,) int64 rows on the card, pool rows), timed by CUDA-graph
+    replays in the turns A B C D D C B A, each held against an f64 sum:
+    within 1e-6 of each row's sum of |g| (f32 sums in another order).
+    Returns {regime: {candidate: ms}}."""
+    out = {}
+    for name, flat, rows in regimes:
+        gen = torch.Generator(device=flat.device).manual_seed(3)
+        g = torch.randn((flat.shape[0], 9), device=flat.device, generator=gen)
+        cands = [c for c in SCATTERS if c != "onehot" or rows * flat.shape[0] <= ONEHOT_MAX_ELEMS]
+        ref = _scatter_index_add(flat, g.double(), rows)
+        tol = 1e-6 * (_scatter_index_add(flat, g.abs().double(), rows) + 1.0)
+        for c in cands:
+            err = (SCATTERS[c](flat, g, rows).double() - ref).abs()
+            if not bool((err <= tol).all()):
+                fail(f"vertex backward {c} on {name} differs from the f64 sum by "
+                     f"{float(err.max())}")
+        ms = {c: [] for c in cands}
+        for c in cands + cands[::-1]:
+            ms[c].append(device_ms(SCATTERS[c], [(flat, g, rows)], budget_s=0.1))
+        out[name] = {c: min(v) for c, v in ms.items()}
+        emit(dict(phase="vertex_backward_candidates", what=what, regime=name,
+                  lanes=flat.shape[0], rows=rows,
+                  distinct_rows=int(torch.unique(flat).numel()),
+                  ms={c: v for c, v in ms.items()}, best=min(out[name], key=out[name].get)))
+    return out
+
+
+def synthetic_vertex_regimes(dev):
+    """The three regimes of a vertex gather at their sizes, with made-up
+    rows: Cornell's light samples (1M lanes on 2 rows of 16), envmesh's
+    bounce (262,144 lanes over 131,072 rows, half of them missing onto row
+    0), the 524k sphere (1M lanes over 524,288 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rows_of(n, rows):
+        return torch.randint(0, rows, (n,), device=dev, generator=gen)
+
+    spread = rows_of(1 << 18, 1 << 17)
+    return [("cornell light quad", rows_of(1 << 20, 2), 16),
+            ("envmesh bounce", torch.where(rows_of(1 << 18, 2) == 0, 0, spread), 1 << 17),
+            ("sphere 524k", rows_of(1 << 20, 1 << 19), 1 << 19)]
+
+
+def two_lights_scene(w: int, h: int, depth: int):
+    """Cornell with a second light, a small warm emissive sphere (the
+    scene of tests/test_torch_lightsampling.py::_two_lights)."""
+    from tinsel_tpu_torch.scene import model
+    from tinsel_tpu_torch.scene.presets import cornell_scene
+
+    sc = cornell_scene(w, h, depth)
+    sc.add_primitive(model.Primitive(
+        type=model.SPHERE, radius=0.15,
+        start_transform=model.HostTransform(p=np.array([-0.55, 1.4, 0.3], np.float32)),
+        material=model.Material(color=np.zeros(3, np.float32),
+                                emission=np.array([6.0, 3.0, 1.0], np.float32)),
+        light_samples=1,
+    ))
+    return sc
+
+
+def leaf_grads(flat, cam, leaves_of, put, source, w: int, h: int, depth: int):
+    """(loss, {leaf: gradient}) of render_loss against 0.25 with respect to
+    ``leaves_of(flat, cam)`` (a dict of tensors, cloned as leaves) put back
+    by ``put(flat, cam, leaves) -> (flat, cam)``; a leaf the loss does not
+    reach gets zeros."""
+    from tinsel_tpu_torch.diff.gradients import render_loss
+
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in leaves_of(flat, cam).items()}
+    f, c = put(flat, cam, leaves)
+    target = torch.full((h, w, 3), 0.25, device=flat.prims.start_p.device)
+    loss = render_loss(f, c, source, target, width=w, height=h, max_depth=depth)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss, {k: torch.zeros_like(v) if g is None else g
+                  for (k, v), g in zip(leaves.items(), grads)}
+
+
+def hold_grads(dev, sc, leaves_of, put, what, w=64, h=64, depth=1, held=None):
+    """Card against CPU gradients at equal draws (NumpyUniforms(13)): the
+    loss within 1e-5 relative, each leaf within GRAD_TOL of its largest
+    entry (``grad_devs``). ``held``: the leaves so held
+    (default all); the others are reported, as gradient_equal_draw_phase
+    reports depth 4, where a leaf fed by the few paths that take another
+    branch after a last-bit difference moves by more. Returns the card's
+    gradients."""
+    from tinsel_tpu_torch.core.sampling import NumpyUniforms
+    from tinsel_tpu_torch.render.camera import CameraParams
+
+    res = []
+    for d in (dev, torch.device("cpu")):
+        flat, cam = sc.flatten(d), CameraParams.from_host(sc.camera, d)
+        loss, g = leaf_grads(flat, cam, leaves_of, put, NumpyUniforms(13, d), w, h, depth)
+        res.append((float(loss.detach()), {k: v.detach().cpu() for k, v in g.items()}))
+    (la, ga), (lb, gb) = res
+    dev_norm = grad_devs(ga, gb)
+    held = [k for k in gb if held is None or k in held]
+    worst = max(held, key=dev_norm.get)
+    rest = [k for k in gb if k not in held]
+    rec = dict(phase="switch_grad_gpu_vs_cpu_equal_draws", scene=what,
+               loss_rel_diff=abs(la - lb) / abs(lb), worst_leaf=worst,
+               worst_normalized_dev=dev_norm[worst],
+               worst_reported_leaf=max(rest, key=dev_norm.get) if rest else None,
+               worst_reported_dev=max((dev_norm[k] for k in rest), default=None),
+               nonzero_leaves=sorted(k for k, g in ga.items() if bool(g.any())))
+    emit(rec)
+    if rec["loss_rel_diff"] > 1e-5 or dev_norm[worst] > GRAD_TOL:
+        fail(f"card and CPU gradients disagree at equal draws: {rec}")
+    return ga
+
+
+def _planes_of(flat, cam):
+    pool = flat.pool
+    return {**{f"tri_planes[{k}]": p for k, p in enumerate(pool.tri_planes)},
+            **{f"nrm_planes[{k}]": p for k, p in enumerate(pool.nrm_planes)}}
+
+
+def _materials_camera_planes(flat, cam):
+    return {**{f"materials.{f.name}": getattr(flat.materials, f.name)
+               for f in dataclasses.fields(flat.materials)},
+            **{f"camera.{f.name}": getattr(cam, f.name) for f in dataclasses.fields(cam)},
+            **_planes_of(flat, cam)}
+
+
+def _put(flat, cam, leaves):
+    """Leaves named as ``_materials_camera_planes`` (or a subset, or
+    ``prims.<field>``) back into (flat, cam)."""
+    def part(prefix):
+        return {k.split(".", 1)[1]: v for k, v in leaves.items() if k.startswith(prefix + ".")}
+
+    pool = flat.pool
+    tri = [leaves.get(f"tri_planes[{k}]", p) for k, p in enumerate(pool.tri_planes)]
+    nrm = [leaves.get(f"nrm_planes[{k}]", p) for k, p in enumerate(pool.nrm_planes)]
+    flat = dataclasses.replace(
+        flat, materials=dataclasses.replace(flat.materials, **part("materials")),
+        prims=dataclasses.replace(flat.prims, **part("prims")),
+        pool=dataclasses.replace(pool, tri_planes=tuple(tri), nrm_planes=tuple(nrm)))
+    return flat, dataclasses.replace(cam, **part("camera"))
+
+
+def hoist_off_part(dev) -> dict:
+    """``STATIC_TRANSFORM_HOIST = False`` (every sphere and tiny instance
+    interpolated at the ray's time): K5c and K5a against their plain
+    versions on the calls of one Cornell 512x512 depth-4 pass (4 spp, 1M
+    rays a call) and of one pass of scenes/motionblur.tin, every lane
+    equal and t bit for bit, the table packed in the moving form (its
+    size beside the hoisted table's); the refit's t equal to the sweep's
+    on every closest-hit call; motionblur.tin on the card against the CPU
+    at equal draws at 64x64; the gradient of end_p (and start_p) at 64x64
+    depth 2 (the scene has no light: its radiance is the sky's, reached by
+    the first bounce): a static primitive's end_p gradient nonzero on the
+    card, both within GRAD_TOL of the CPU's. Returns {kernel: [records]}."""
+    from tinsel_tpu_torch.accel.sweep import layout
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+    from tinsel_tpu_torch.render import trace
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+    from tinsel_tpu_torch.scene.loaders.tin import load_tin
+    from tinsel_tpu_torch.scene.model import PLANE
+    from tinsel_tpu_torch.scene.presets import cornell_scene
+
+    recs = {"sweep_closest": [], "sweep_any": []}
+    motionblur = load_tin(str(ROOT / "scenes" / "motionblur.tin"))
+    with switched(trace, "STATIC_TRANSFORM_HOIST", False):
+        for tag, sc, spp, n_calls in (
+                (f"cornell {MAIN_W}x{MAIN_H}", cornell_scene(MAIN_W, MAIN_H, MAIN_DEPTH),
+                 spp_per_pass(4, MAIN_W, MAIN_H), MAIN_DEPTH),
+                ("motionblur.tin", motionblur, 1, 1)):
+            flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+            run = make_render_pass(sc.options, spp)
+            with torch.no_grad():
+                calls = capture_calls(((ops_sweep, "sweep_closest"), (ops_sweep, "sweep_any")),
+                                      lambda: run(flat, cam, PathUniforms(11, dev)))
+            refit_bits = 0
+            for name in recs:
+                if any(k.get("hoist", True) for _, k in calls[name]):
+                    fail(f"hoist off, {tag}: a {name} call was made with the hoist on")
+                for i, (a, _) in enumerate(calls[name][:n_calls]):
+                    f, args = sweep_args(a, name == "sweep_closest")
+                    recs[name].append(check_sweep(ops_sweep, name, f, args,
+                                                  f"{tag} hoist off bounce {i}", hoist=False))
+                    if name == "sweep_closest":
+                        t, prim, tri = ops_sweep.sweep_closest_cuda(f, *args, hoist=False)
+                        with torch.no_grad():
+                            t_re, _ = trace._refit(f, layout(f.prim_static, False), *args,
+                                                   prim, tri)
+                        refit_bits += int((t_re.view(torch.int32) != t.view(torch.int32)).sum())
+            tabs = {h: ops_sweep.table(flat, dev, h) for h in (True, False)}
+            emit(dict(phase="hoist_off_table", scene=tag,
+                      **{("hoisted" if h else "hoist_off"): dict(
+                          floats=int(t.table.numel()), bytes=4 * int(t.table.numel()),
+                          chunks=t.n_chunks, moving=t.motion) for h, t in tabs.items()},
+                      refit_t_bits_differing=refit_bits))
+            if refit_bits:
+                fail(f"hoist off, {tag}: the refit's t differs from the sweep's on "
+                     f"{refit_bits} rays")
+            del calls, flat, cam
+        equal_draws_small(motionblur, 64, 64, MAIN_DEPTH, "motionblur.tin 64x64 hoist off",
+                          dev)
+        g = hold_grads(dev, motionblur,
+                       lambda f, c: {"prims.start_p": f.prims.start_p,
+                                     "prims.end_p": f.prims.end_p},
+                       _put, "motionblur.tin 64x64 d2 hoist off: start_p, end_p", depth=2)
+        static = [i for i, ps in enumerate(motionblur.flatten("cpu").prim_static)
+                  if not ps.motion and ps.type != PLANE]
+        end_static = float(g["prims.end_p"][static].abs().max()) if static else 0.0
+        emit(dict(phase="hoist_off_end_p", static_prims=static,
+                  max_abs_end_p_grad_static=end_static))
+        if not end_static > 0:
+            fail("hoist off: no static primitive's end_p gradient on the card")
+    return recs
+
+
+def closest_shadow_part(ops_nlm, ops_bvh, dev) -> tuple:
+    """``NEE_CLOSEST_SHADOW = True`` (every area-light shadow ray a closest
+    hit, accepted within PORTAL_TOL of the sampled distance):
+
+    * Cornell 512x512 depth 4 at 16 spp -> ``resolve`` -> ``nlm_denoise``,
+      K5c, K5a, K1, K3 and K4 counts reset just before and read just after.
+      The code implies, per pass of 4 spp (1M rays): at each of the 4
+      bounces one K5c for the path's ray and one for each light sample's
+      shadow ray (Cornell: one light, one sample), no K5a (no probe, no
+      occlusion query), no walk (no big mesh): K5c = 4 passes x 4 bounces
+      x 2 = 32, K5a = 0, K1 = 1, K3 = K4 = 0;
+    * its ms per spp beside the switch off, in the turns on, off, off, on;
+    * many_mesh_scene(48, 512, 512, 2) at 4 spp (one pass): the light's
+      shadow rays run K3 through the shortlist rounds; every K3 call of
+      the pass held against the plain walk on its own inputs;
+    * card against CPU at equal draws at 64x64: Cornell ("all") and
+      Cornell with a second light in "power" mode.
+
+    Returns (launches of the Cornell and many_mesh runs, K3's worst error)."""
+    from tinsel_tpu_torch.core.color import resolve
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import sweep as ops_sweep
+    from tinsel_tpu_torch.render import lights, trace
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass, render
+    from tinsel_tpu_torch.scene.presets import cornell_scene, many_mesh_scene
+
+    sc = cornell_scene(MAIN_W, MAIN_H, MAIN_DEPTH)
+    flat = sc.flatten(dev)
+    passes = MAIN_SPP // spp_per_pass(MAIN_SPP, MAIN_W, MAIN_H)
+    shadow = sum(flat.prim_static[j].light_samples for j in flat.light_indices)
+    want = {"sweep_closest": passes * MAIN_DEPTH * (1 + shadow), "sweep_any": 0,
+            "nlm_filter": 1, "bvh_closest": 0, "bvh_any": 0}
+    with switched(lights, "NEE_CLOSEST_SHADOW", True):
+        render(sc, spp=1, seed=1, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        for m in (ops_nlm, ops_sweep, ops_bvh):
+            m.reset_launch_counts()
+        accum = render(sc, spp=MAIN_SPP, seed=0, device=dev)
+        den = ops_nlm.nlm_denoise(resolve(accum))
+        torch.cuda.synchronize()
+        got = {**ops_sweep.launch_counts, **ops_bvh.launch_counts, **ops_nlm.launch_counts}
+    got = {k: got[k] for k in want}
+    emit(dict(phase="closest_shadow_main_path", scene=f"cornell {MAIN_W}x{MAIN_H} "
+              f"d{MAIN_DEPTH} {MAIN_SPP}spp", launches=got, expected=want,
+              image_mean=float(resolve(accum).mean()), denoised_mean=float(den.mean())))
+    if got != want or not torch.isfinite(den).all():
+        fail(f"closest-shadow main path: launches {got}, expected {want}")
+    launches = dict(got)
+
+    ms = {True: [], False: []}
+    for closest in (True, False, False, True):
+        with switched(lights, "NEE_CLOSEST_SHADOW", closest):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(sc, spp=MAIN_SPP, seed=0, device=dev)
+            torch.cuda.synchronize()
+            ms[closest].append((time.perf_counter() - t0) * 1e3 / MAIN_SPP)
+    emit(dict(phase="closest_shadow_ms_per_spp", scene=f"cornell {MAIN_W}x{MAIN_H} "
+              f"d{MAIN_DEPTH} {MAIN_SPP}spp", turns="on, off, off, on",
+              closest_shadow_ms_per_spp=ms[True], segment_occlusion_ms_per_spp=ms[False]))
+
+    mm = many_mesh_scene(48, BIG_W, BIG_H, 2)
+    flat, cam = mm.flatten(dev), CameraParams.from_host(mm.camera, dev)
+    run = make_render_pass(mm.options, spp_per_pass(4))
+    rounds = {"n": 0}
+    orig_rounds = trace._instance_rounds
+
+    def counted(*a, **k):
+        rounds["n"] += 1
+        return orig_rounds(*a, **k)
+
+    outs = {}
+    trace._instance_rounds = counted
+    try:
+        with switched(lights, "NEE_CLOSEST_SHADOW", True), torch.no_grad():
+            ops_bvh.reset_launch_counts()
+            calls = capture_calls(((ops_bvh, "closest_hit"), (ops_bvh, "any_hit")),
+                                  lambda: run(flat, cam, PathUniforms(3, dev)), outs=outs)
+            torch.cuda.synchronize()
+            mm_launches = dict(ops_bvh.launch_counts)
+    finally:
+        trace._instance_rounds = orig_rounds
+    held = hold_walk_calls(calls, outs)
+    emit(dict(phase="closest_shadow_many_mesh", scene=f"many_mesh 48 {BIG_W}x{BIG_H} d2 "
+              f"{spp_per_pass(4)}spp pass", launches=mm_launches,
+              instance_rounds_calls=rounds["n"], k3_held=held["closest_hit"]))
+    if (held["closest_hit"]["mismatched"] or not held["closest_hit"]["max_abs_err"] <= KERNEL_TOL
+            or rounds["n"] != 2 * 2 or mm_launches["bvh_any"] or not mm_launches["bvh_closest"]):
+        fail(f"closest-shadow many_mesh: {held}, rounds {rounds}, launches {mm_launches}")
+    for k in ("bvh_closest", "bvh_any"):
+        launches[k] += mm_launches[k]
+    del calls, outs
+
+    with switched(lights, "NEE_CLOSEST_SHADOW", True):
+        equal_draws_small(cornell_scene(64, 64, MAIN_DEPTH), 64, 64, MAIN_DEPTH,
+                          "cornell 64x64 d4 closest shadow", dev)
+        two = two_lights_scene(64, 64, 3)
+        two.options = dataclasses.replace(two.options, light_sampling="power")
+        equal_draws_small(two, 64, 64, 3, "two lights 64x64 d3 power closest shadow", dev)
+    return launches, held["closest_hit"]["max_abs_err"]
+
+
+def vertex_grads_part(dev):
+    """``MESH_VERTEX_GRADS = True``: card against CPU gradients at equal
+    draws at 64x64 depth 2 (Cornell: the light quad; envmesh detail 32:
+    the big batch, whose sky-lit radiance reaches its vertices through the
+    first bounce) with the vertex and normal planes as leaves beside
+    materials and camera, the planes held (materials and camera are held
+    at depth 1 by gradient_equal_draw_phase, and reported here); then the gradient step at 512x512 depth 4 on
+    Cornell and envmesh (131k triangles) with those leaves, the switch on
+    against off in the turns on, off, off, on: fwd and fwd+bwd ms
+    (fwd+bwd / fwd), peak memory, and one profiled backward each: device
+    busy ms, top kernels and the vertex backward's own device ms
+    (``_GatherPlanes.backward`` under a profiler range); then every
+    candidate backward (``vertex_backward_candidates``) on the largest
+    gather each scene's backward ran, and on the three regimes at their
+    sizes (``synthetic_vertex_regimes``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tinsel_tpu_torch.accel import traverse
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.diff.gradients import render_loss
+    from tinsel_tpu_torch.render import trace
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene.presets import cornell_scene, envmesh_scene
+
+    with switched(trace, "MESH_VERTEX_GRADS", True):
+        for what, sc in (("cornell", cornell_scene(64, 64, 2)),
+                         ("envmesh detail 32", envmesh_scene(64, 64, 2, detail=32))):
+            planes = _planes_of(sc.flatten("cpu"), None)
+            g = hold_grads(dev, sc, _materials_camera_planes, _put,
+                           f"{what} 64x64 d2 vertex grads", depth=2, held=planes)
+            if not any(bool(g[k].any()) for k in planes):
+                fail(f"vertex grads on {what}: every plane's gradient is zero on the card")
+
+    orig_bwd = traverse._GatherPlanes.backward
+    seen = []
+
+    def traced_bwd(ctx, *grads):
+        flat = ctx.saved_tensors[0]
+        seen.append((flat.shape[0], flat, ctx.rows))
+        with record_function("vertex_backward"):
+            return orig_bwd(ctx, *grads)
+
+    target = torch.full((BIG_H, BIG_W, 3), 0.25, device=dev)
+    regimes = []
+    for name, sc in (("cornell", cornell_scene(BIG_W, BIG_H, 4)),
+                     ("envmesh", envmesh_scene(BIG_W, BIG_H, 4))):
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+
+        def fwd_bwd(i):
+            leaf_grads(flat, cam, _materials_camera_planes, _put, PathUniforms(i, dev),
+                       BIG_W, BIG_H, 4)
+
+        def fwd(i):
+            with torch.no_grad():
+                render_loss(flat, cam, PathUniforms(i, dev), target, width=BIG_W, height=BIG_H,
+                            max_depth=4)
+
+        times = {v: {"fwd": [], "fwd_bwd": []} for v in (True, False)}
+        peak, prof_rec = {}, {}
+        for on in (True, False):  # warm-up: the first backward of each setting
+            with switched(trace, "MESH_VERTEX_GRADS", on):
+                fwd_bwd(9)
+        for i, on in enumerate((True, False, False, True)):
+            with switched(trace, "MESH_VERTEX_GRADS", on):
+                times[on]["fwd"].append(_event_ms(lambda: fwd(i), 1))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times[on]["fwd_bwd"].append(_event_ms(lambda: fwd_bwd(i), 1))
+                peak[on] = torch.cuda.max_memory_allocated() / 2**30
+        for on in (True, False):
+            traverse._GatherPlanes.backward = staticmethod(traced_bwd)
+            del seen[:]
+            try:
+                with switched(trace, "MESH_VERTEX_GRADS", on):
+                    leaves = {k: v.detach().clone().requires_grad_(True)
+                              for k, v in _materials_camera_planes(flat, cam).items()}
+                    f, c = _put(flat, cam, leaves)
+                    ls = render_loss(f, c, PathUniforms(5, dev), target, width=BIG_W,
+                                     height=BIG_H, max_depth=4)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        torch.autograd.grad(ls, list(leaves.values()), allow_unused=True)
+                        torch.cuda.synchronize()
+            finally:
+                traverse._GatherPlanes.backward = orig_bwd
+            kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                       and e.key != "vertex_backward"]
+            busy, vb = range_device_ms(prof, "vertex_backward")
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+            prof_rec[on] = dict(
+                backward_device_busy_ms=busy if busy > 0 else "not measured",
+                vertex_backward_ms=vb, vertex_backward_calls=len(seen),
+                vertex_backward_share=vb / busy if busy > 0 else "not measured",
+                backward_top_kernels=[[e.key[:70], e.count, e.self_device_time_total / 1e3]
+                                      for e in top])
+            if on:
+                if not seen:
+                    fail(f"vertex grads on {name}: the gathers' backward never ran")
+                n, idx, rows = max(seen, key=lambda x: x[0])
+                regimes.append((f"{name} largest gather", idx, rows))
+            del seen[:], ls, leaves, f, c
+        med = {on: {k: statistics.median(v) for k, v in t.items()} for on, t in times.items()}
+        emit(dict(phase="vertex_grads_step", scene=f"{name} {BIG_W}x{BIG_H} d4 1spp",
+                  turns="on, off, off, on", **{("on" if on else "off"): dict(
+                      fwd_ms=times[on]["fwd"], fwd_bwd_ms=times[on]["fwd_bwd"],
+                      fwd_bwd_over_fwd=med[on]["fwd_bwd"] / med[on]["fwd"],
+                      peak_memory_gib=peak[on], **prof_rec[on]) for on in (True, False)}))
+        del flat, cam
+    vertex_backward_candidates(regimes, "captured")
+    vertex_backward_candidates(synthetic_vertex_regimes(dev), "synthetic")
+
+
+def probe_texels_part(dev):
+    """The gradient of the probe's texels (``ProbeFlat.data``, read by
+    advanced indexing in render/probe.py, whose backward is the
+    accumulating ``index_put``): the gradient step on
+    ``envmesh_scene(512, 512, 4, probe=True)`` at 1 spp with materials and
+    camera as leaves, with and without ``probe.data`` beside them, in the
+    turns with, without, without, with: each backward profiled, its
+    device busy ms, the ms of its kernels named ``index`` and its top
+    kernels; the texel gradient finite and nonzero."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.diff.gradients import render_loss
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.scene.presets import envmesh_scene
+
+    sc = envmesh_scene(BIG_W, BIG_H, 4, probe=True)
+    flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+
+    def leaves_of(texels):
+        def get(f, c):
+            out = {k: v for k, v in _materials_camera_planes(f, c).items()
+                   if not k.endswith("]")}  # materials and camera
+            if texels:
+                out["probe.data"] = f.probe.data
+            return out
+        return get
+
+    def put(f, c, leaves):
+        if "probe.data" in leaves:
+            f = dataclasses.replace(f, probe=dataclasses.replace(f.probe,
+                                                                 data=leaves["probe.data"]))
+        return _put(f, c, {k: v for k, v in leaves.items() if k != "probe.data"})
+
+    target = torch.full((BIG_H, BIG_W, 3), 0.25, device=dev)
+    recs = {True: [], False: []}
+    leaf_grads(flat, cam, leaves_of(True), put, PathUniforms(9, dev), BIG_W, BIG_H, 4)  # warm
+    for i, texels in enumerate((True, False, False, True)):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in leaves_of(texels)(flat, cam).items()}
+        loss = render_loss(*put(flat, cam, leaves), PathUniforms(i, dev), target, width=BIG_W,
+                           height=BIG_H, max_depth=4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                     allow_unused=True)))
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        recs[texels].append(dict(
+            backward_device_busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+            index_kernels_ms=sum(e.self_device_time_total for e in kernels
+                                 if "index" in e.key.lower()) / 1e3,
+            top_kernels=[[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top]))
+        if texels:
+            t = g["probe.data"]
+            if t is None or not bool(torch.isfinite(t).all()) or not bool(t.any()):
+                fail("probe texel gradient: not finite, or zero")
+            texel_nonzero = int(t.abs().sum(-1).gt(0).sum())
+    emit(dict(phase="probe_texel_grads", scene=f"envmesh probe {BIG_W}x{BIG_H} d4 1spp",
+              turns="with, without, without, with", texels=int(flat.probe.data[..., 0].numel()),
+              texels_with_gradient=texel_nonzero, with_texels=recs[True],
+              without_texels=recs[False]))
+
+
+def range_device_ms(prof, name: str) -> tuple:
+    """(device ms of a profiler run's device records, device ms of
+    those inside the spans of the range ``name``), from the raw records:
+    the profiler marks each span of a ``record_function`` range on the
+    device timeline with a record of the range's name, which is not
+    counted itself."""
+    from torch.autograd import DeviceType
+
+    recs = [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    spans = [(s, s + d) for n, s, d in recs if n == name]
+    work = [(s, d) for n, s, d in recs if n != name]
+    inside = sum(d for s, d in work if any(a <= s and s + d <= b for a, b in spans))
+    return sum(d for _, d in work) / 1e6, inside / 1e6
+
+
+def switches_phase(ops_nlm, ops_bvh, dev) -> tuple:
+    """Item 15 of the module docstring. Returns (the sweep records of the
+    hoist-off part, the closest-shadow runs' launches, K3's worst error
+    there)."""
+    t0 = time.perf_counter()
+    sweeps = hoist_off_part(dev)
+    launches, k3_err = closest_shadow_part(ops_nlm, ops_bvh, dev)
+    vertex_grads_part(dev)
+    probe_texels_part(dev)
+    emit(dict(phase="switches", seconds=time.perf_counter() - t0))
+    return sweeps, launches, k3_err
+
+
 def _rgbe_to_float_ref(rgbe):
     """RGBE bytes to f32: mantissa / 256 * 2^(e - 128), 0 where e = 0."""
     e = rgbe[..., 3].astype(np.int32)
@@ -3297,6 +3898,7 @@ def main():
         ajax_launches = ajaxenv_files_phase(ops_bvh, dev, Path(tmp))
         entry_launches = entry_points_phase(ops_nlm, ops_bvh, dev, Path(tmp))
         mg_launches, mg_walk_err = multi_gpu_phase(dev, Path(tmp))
+    sw_sweeps, sw_launches, sw_k3_err = switches_phase(ops_nlm, ops_bvh, dev)
     # K3/K4 on the big-mesh, probe and scene-file paths, K7 on the
     # complexity view; every kernel on the entry points' runs
     for k in ("bvh_closest", "bvh_any"):
@@ -3308,6 +3910,10 @@ def main():
         launches[k] += entry_launches[k]
     for k in mg_launches:  # the ranks' sharded renders
         launches[k] += mg_launches[k]
+    for k, n in sw_launches.items():  # the closest-shadow runs (phase 15)
+        launches[k] += n
+    for k, recs in sw_sweeps.items():  # the hoist-off sweeps, in the worst error
+        sweeps[k] += recs
 
     table = []
     for rec, key, replaces in (
@@ -3337,7 +3943,8 @@ def main():
         table.append(dict(
             name=key, route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
             replaces=replaces, launches=launches[key],
-            max_abs_err=max([r["max_abs_err"] for r in walks[key]] + [mg_walk_err[key]]),
+            max_abs_err=max([r["max_abs_err"] for r in walks[key]] + [mg_walk_err[key]]
+                            + ([sw_k3_err] if key == "bvh_closest" else [])),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             bound_share=rec["bound_share"], library_ms=None,

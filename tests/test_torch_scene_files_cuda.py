@@ -1,6 +1,7 @@
-"""On the card: the material gather's one-hot backward against the
-accumulating gather it replaced, the walks (K3, K4) on trees from the
-native builder, and a loaded scene file against the CPU at equal draws.
+"""On the card: the material gather's one-hot backward and the vertex
+gather's (one-hot or ``index_add_``) against the accumulating gathers
+they replaced, the walks (K3, K4) on trees from the native SAH code, and a
+loaded scene file against the CPU at equal draws.
 Every test needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor tinsel_tpu, so it runs where JAX is not
@@ -49,6 +50,41 @@ def _select_grads(mats, idx, upstream, new: bool):
     rows = {k: getattr(m.select(idx), k) for k in leaves} if new else _old_select(m, idx)
     loss = sum((rows[k] * upstream[k]).sum() for k in rows)
     return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,spread", [(16, 2), (16, 16), (131072, 2), (131072, 131072)])
+def test_vertex_gather_matches_advanced_indexing(cuda, rows, spread):
+    """``MeshPool.gather_tri``: forward bit for bit against advanced
+    indexing; backward (one-hot for 16 rows, ``index_add_`` for 131,072)
+    against the accumulating ``index_put`` on 262,144 lanes over ``spread``
+    rows, with small-integer upstream gradients, so every sum is exact in
+    f32 and the two are equal bit for bit in any order."""
+    rng = np.random.default_rng(rows + spread)
+    planes = [torch.from_numpy(rng.normal(size=rows).astype(np.float32)).to(cuda)
+              for _ in range(18)]
+    pool = plain.MeshPool(node_rows=torch.zeros((1, 72), device=cuda),
+                          block_rows=torch.zeros((1, 192), device=cuda),
+                          tri_cdf=torch.zeros(rows, device=cuda), tri_planes=tuple(planes[:9]),
+                          nrm_planes=tuple(planes[9:]))
+    idx = torch.from_numpy(rng.integers(0, spread, 262144)).to(cuda)
+    up = torch.from_numpy(rng.integers(-8, 9, (3, 262144, 3)).astype(np.float32)).to(cuda)
+    grads = []
+    for new in (True, False):
+        leaves = [p.clone().requires_grad_(True) for p in planes[:9]]
+        if new:
+            corners = dataclasses.replace(pool, tri_planes=tuple(leaves)).gather_tri(idx)
+        else:
+            corners = tuple(torch.stack([leaves[3 * k + c][idx] for c in range(3)], -1)
+                            for k in range(3))
+        grads.append(torch.autograd.grad(sum((c * u).sum() for c, u in zip(corners, up)),
+                                         leaves))
+        if new:
+            for a, k in zip(corners, range(3)):
+                want = torch.stack([planes[3 * k + c][idx] for c in range(3)], -1)
+                assert torch.equal(a, want)
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -315,7 +315,7 @@ def test_shared_memory_above_the_opt_in_limit_raises(cuda, monkeypatch, chunks):
         table=torch.zeros(floats * chunks, device=cuda),
         chunks=torch.arange(chunks + 1, dtype=torch.int32, device=cuda) * floats,
         n_chunks=chunks, smem_floats=floats, motion=False)
-    monkeypatch.setattr(ops, "table", lambda scene, dev: big)
+    monkeypatch.setattr(ops, "table", lambda scene, dev, hoist: big)
     flat = presets.cornell_scene(8, 8, 1).flatten(device=cuda)
     o = torch.zeros(64, 3, device=cuda)
     d = torch.ones(64, 3, device=cuda)

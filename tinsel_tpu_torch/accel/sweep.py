@@ -24,7 +24,10 @@ Motion: a sphere, or a tiny group's instance, takes the transform
 interpolated at the ray's time (lerp p, nlerp q, lerp s) when some row of
 its batch moves (all spheres are one batch; each tiny group is one),
 else its start transform, as the JAX package's
-``_prim_transforms_batched`` does.
+``_prim_transforms_batched`` does. With the hoist off (``hoist=False``,
+``render/trace.py::STATIC_TRANSFORM_HOIST``) every batch interpolates:
+the nlerp of a static q may move it by an ulp, so the sweep and the
+refit both take the interpolated form.
 """
 
 from __future__ import annotations
@@ -82,17 +85,22 @@ class Layout:
 
 
 @functools.lru_cache(maxsize=16)
-def layout(prim_static: tuple) -> Layout:
-    """The sweep's rows of a scene, from its (hashable) ``prim_static``."""
+def layout(prim_static: tuple, hoist: bool = True) -> Layout:
+    """The sweep's rows of a scene, from its (hashable) ``prim_static``.
+    ``hoist=False``: every sphere and tiny group moves."""
+
+    def moves(idxs):
+        return bool(idxs) and (not hoist or any(prim_static[i].motion for i in idxs))
+
     tiny, big, spheres, planes = mesh_partition(prim_static)
-    sphere_motion = any(prim_static[i].motion for i in spheres)
+    sphere_motion = moves(spheres)
     groups = []
     flags = [False] * len(prim_static)
     for i in spheres:
         flags[i] = sphere_motion
     for idxs in tiny.values():
         h = prim_static[idxs[0]].mesh
-        motion = any(prim_static[i].motion for i in idxs)
+        motion = moves(idxs)
         groups.append(Group(tuple(idxs), h, h.real_tris or h.num_tris, motion))
         for i in idxs:
             flags[i] = motion
@@ -281,7 +289,7 @@ def _add(stats, key, n):
 
 
 @torch.no_grad()
-def sweep_closest(scene, origins, dirs, times, stats: dict | None = None):
+def sweep_closest(scene, origins, dirs, times, stats: dict | None = None, hoist: bool = True):
     """Closest hit of each ray over the scene's spheres, planes and tiny
     meshes (plain version of kernel K5c). origins/dirs (R, 3), times (R,).
     Returns (t, prim, tri): t = +inf, prim = -1 and tri = -1 on a miss;
@@ -291,8 +299,8 @@ def sweep_closest(scene, origins, dirs, times, stats: dict | None = None):
     "sphere_tests", "plane_tests", "instance_tests": a local ray and box
     test ("moving_instance_tests" where the transform is interpolated),
     "tri_tests": only where the box passes, "refits": one a group where a
-    ray's candidate comes from)."""
-    lay = layout(scene.prim_static)
+    ray's candidate comes from). ``hoist``: ``layout``'s."""
+    lay = layout(scene.prim_static, hoist)
     r = origins.shape[0]
     dev = origins.device
     o, d = origins.detach().unbind(-1), dirs.detach().unbind(-1)
@@ -376,13 +384,14 @@ def _group_closest(scene, g: Group, o, d, times, best_t, best_prim, best_tri, st
 
 
 @torch.no_grad()
-def sweep_any(scene, origins, dirs, times, tmax, stats: dict | None = None):
+def sweep_any(scene, origins, dirs, times, tmax, stats: dict | None = None,
+              hoist: bool = True):
     """Occlusion of each ray by a sphere, plane or tiny-mesh triangle with
     0 < t < tmax (plain version of kernel K5a): (R,) bool. ``stats``: as
     ``sweep_closest``'s, counting the tests of a sweep that stops at a
     ray's first occluding row (sphere, plane or triangle), as the kernel
-    does."""
-    lay = layout(scene.prim_static)
+    does. ``hoist``: ``layout``'s."""
+    lay = layout(scene.prim_static, hoist)
     r = origins.shape[0]
     dev = origins.device
     o, d = origins.detach().unbind(-1), dirs.detach().unbind(-1)

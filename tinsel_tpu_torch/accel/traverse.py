@@ -63,19 +63,65 @@ class MeshPool:
 
     def gather_tri(self, idx):
         """Vertices of triangles idx (...,) -> three (..., 3) tensors."""
-        p = self.tri_planes
-        return tuple(
-            torch.stack([p[3 * k][idx], p[3 * k + 1][idx], p[3 * k + 2][idx]], -1)
-            for k in range(3)
-        )
+        return _corners(_GatherPlanes.apply(idx, *self.tri_planes))
 
     def gather_normals(self, idx):
         """Vertex normals of triangles idx (...,) -> three (..., 3) tensors."""
-        p = self.nrm_planes
-        return tuple(
-            torch.stack([p[3 * k][idx], p[3 * k + 1][idx], p[3 * k + 2][idx]], -1)
-            for k in range(3)
-        )
+        return _corners(_GatherPlanes.apply(idx, *self.nrm_planes))
+
+
+def _corners(cols):
+    """Nine gathered planes -> three (..., 3) corners."""
+    return tuple(torch.stack(cols[3 * k:3 * k + 3], -1) for k in range(3))
+
+
+ONEHOT_ROWS = 64  # a gather's backward over at most this many rows is a matmul
+
+
+class _GatherPlanes(torch.autograd.Function):
+    """``plane[idx]`` for each of the nine (T,) planes of a gather:
+    ``index_select`` forward (exact, the bits of advanced indexing). The
+    backward sums each lane's gradient into its row, for the planes that
+    need one at once: a pool of at most ``ONEHOT_ROWS`` rows takes one
+    (T, N) one-hot x (N, 9) matmul, a larger one ``index_add_`` (an atomic
+    add a lane on the card).
+
+    The rule, from the candidates timed on an NVIDIA H100 80GB HBM3 at
+    700 W (``chip_smoke.py::vertex_backward_candidates``): on a 512x512
+    gradient step's largest gather (262,144 lanes), Cornell's (2 of 16
+    rows) one-hot 0.090 ms, ``index_add_`` 0.368 (colliding atomics), a
+    sorted segment sum 0.650; envmesh's (14,411 of 186,688 rows: missed
+    lanes all read one row) ``index_add_`` 0.495, sorted 0.681. At 1M
+    lanes, 2 rows of 16: one-hot 0.289, ``index_add_`` 1.459; over the
+    524k sphere's rows, where a one-hot table does not fit,
+    ``index_add_`` 0.080, sorted 2.66. Advanced indexing's backward, the
+    accumulating ``index_put`` that sorts and serializes colliding rows,
+    took 23, 47, 122 and 0.38 ms on the same four."""
+
+    @staticmethod
+    def forward(ctx, idx, *planes):
+        ctx.set_materialize_grads(False)
+        flat = idx.reshape(-1)
+        ctx.save_for_backward(flat)
+        ctx.rows = planes[0].shape[0]
+        return tuple(p.index_select(0, flat).reshape(idx.shape) for p in planes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (flat,) = ctx.saved_tensors
+        live = [k for k, g in enumerate(grads) if g is not None and ctx.needs_input_grad[k + 1]]
+        out = [None] * len(grads)
+        if live:
+            g = torch.stack([grads[k].reshape(-1) for k in live], 1)
+            if ctx.rows <= ONEHOT_ROWS:
+                rows = torch.arange(ctx.rows, device=flat.device)
+                sums = (flat[None, :] == rows[:, None]).to(g.dtype) @ g
+            else:
+                sums = torch.zeros((ctx.rows, len(live)), dtype=g.dtype, device=g.device)
+                sums.index_add_(0, flat, g)
+            for c, k in enumerate(live):
+                out[k] = sums[:, c]
+        return (None, *out)
 
 
 @dataclasses.dataclass(frozen=True)

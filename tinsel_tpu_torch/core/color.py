@@ -21,9 +21,10 @@ def srgb_to_linear(c):
     return torch.pow(torch.clamp(c, min=0.0), GAMMA)
 
 
-def tonemap_filmic(c):
+def tonemap_filmic(c, limit=1.0):
     """Hejl/Burgess-Dawson filmic curve, linearized so the final display
-    gamma (linear_to_srgb) round-trips."""
+    gamma (linear_to_srgb) round-trips. ``limit`` is accepted and unused,
+    as in the JAX package."""
     x = torch.clamp(c - 0.004, min=0.0)
     ret = (x * (6.2 * x + 0.5)) / (x * (6.2 * x + 1.7) + 0.06)
     return srgb_to_linear(ret)

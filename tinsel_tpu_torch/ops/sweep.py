@@ -186,17 +186,19 @@ class _Chunk:
         return np.concatenate(out).astype(np.float32)
 
 
-def pack_records(scene, chunk_floats: int | None = None):
+def pack_records(scene, chunk_floats: int | None = None, hoist: bool = True):
     """(table, chunk bounds) of a scene: its chunks as one (F,) f32 numpy
     array and the (C + 1,) int32 float offsets where each starts (the
     last: F). Chunks hold at most ``chunk_floats`` floats (by default one
     chunk of up to ``SMEM_FLOATS``, else chunks of up to ``CHUNK_FLOATS``);
-    an item that does not fit starts the next chunk."""
+    an item that does not fit starts the next chunk. ``hoist=False``
+    (``render/trace.py::STATIC_TRANSFORM_HOIST`` off): every sphere and
+    instance record takes the moving form."""
     if chunk_floats is None:
-        table, bounds = pack_records(scene, SMEM_FLOATS)
-        return (table, bounds) if len(bounds) <= 2 else pack_records(scene, CHUNK_FLOATS)
+        table, bounds = pack_records(scene, SMEM_FLOATS, hoist)
+        return (table, bounds) if len(bounds) <= 2 else pack_records(scene, CHUNK_FLOATS, hoist)
     limit = chunk_floats
-    lay = _plain.layout(scene.prim_static)
+    lay = _plain.layout(scene.prim_static, hoist)
     spheres, planes, groups = _records(lay, scene)
     done, cur = [], _Chunk(lay.sphere_motion)
 
@@ -238,24 +240,26 @@ def pack_records(scene, chunk_floats: int | None = None):
     return table, np.concatenate([[0], np.cumsum([len(c) for c in done])]).astype(np.int32)
 
 
-def _key(scene, dev):
+def _key(scene, dev, hoist: bool):
     objs = (scene.prim_static, scene.prims.start_p, scene.prims.start_q, scene.prims.start_s,
             scene.prims.end_p, scene.prims.end_q, scene.prims.end_s, scene.prims.radius,
             scene.prims.plane, *scene.pool.tri_planes)
-    key = (str(dev), SMEM_FLOATS) + tuple((id(x), getattr(x, "_version", 0)) for x in objs)
+    key = (str(dev), SMEM_FLOATS, hoist) + tuple((id(x), getattr(x, "_version", 0))
+                                                 for x in objs)
     return key, objs
 
 
-def table(scene, dev) -> SweepTable:
-    """The scene's packed record table on ``dev``, packed at its first use
-    and kept while the scene's tables are the same tensors, unchanged."""
-    key, objs = _key(scene, dev)
+def table(scene, dev, hoist: bool = True) -> SweepTable:
+    """The scene's packed record table on ``dev`` for the hoist setting
+    ``hoist`` (``pack_records``), packed at its first use and kept while
+    the scene's tables are the same tensors, unchanged."""
+    key, objs = _key(scene, dev, hoist)
     hit = _tables.get(key)
     if hit is not None:
         return hit[1]
-    recs, bounds = pack_records(scene)
+    recs, bounds = pack_records(scene, hoist=hoist)
     sizes = np.diff(bounds)
-    lay = _plain.layout(scene.prim_static)
+    lay = _plain.layout(scene.prim_static, hoist)
     tab = SweepTable(
         table=torch.from_numpy(recs).to(dev), chunks=torch.from_numpy(bounds).to(dev),
         n_chunks=len(bounds) - 1, smem_floats=int(sizes.max()) if len(sizes) else 0,
@@ -294,7 +298,7 @@ def launch_geometry(kernel: str, tab: SweepTable, rays: int) -> tuple:
     return tile.value, grid.value
 
 
-def _launch(kernel: str, scene, origins, dirs, times, tmax, outs):
+def _launch(kernel: str, scene, origins, dirs, times, tmax, outs, hoist: bool):
     r = origins.shape[0]
     dev = origins.device
     checks = [(origins, "origins", (r, 3)), (dirs, "dirs", (r, 3)), (times, "times", (r,))]
@@ -307,7 +311,7 @@ def _launch(kernel: str, scene, origins, dirs, times, tmax, outs):
     # the kernels read and write a thread's rays as 8- or 16-byte vectors
     origins, dirs, times, tmax = (x if x is None or x.data_ptr() % 16 == 0 else x.clone()
                                   for x in (origins, dirs, times, tmax))
-    tab = table(scene, dev)
+    tab = table(scene, dev, hoist)
     rays = [origins.data_ptr(), dirs.data_ptr(), times.data_ptr() if tab.motion else None]
     if tmax is not None:
         rays.append(tmax.data_ptr())
@@ -328,22 +332,22 @@ def _launch(kernel: str, scene, origins, dirs, times, tmax, outs):
     launch_counts[kernel] += 1
 
 
-def sweep_closest_cuda(scene, origins, dirs, times):
+def sweep_closest_cuda(scene, origins, dirs, times, hoist: bool = True):
     """Kernel K5c: (t, prim, tri) of each ray's closest sphere, plane or
     tiny-mesh hit, as ``accel/sweep.py::sweep_closest``."""
     r, dev = origins.shape[0], origins.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     prim = torch.empty((r,), dtype=torch.int32, device=dev)
     tri = torch.empty((r,), dtype=torch.int32, device=dev)
-    _launch("sweep_closest", scene, origins, dirs, times, None, (t, prim, tri))
+    _launch("sweep_closest", scene, origins, dirs, times, None, (t, prim, tri), hoist)
     return t, prim, tri
 
 
-def sweep_any_cuda(scene, origins, dirs, times, tmax):
+def sweep_any_cuda(scene, origins, dirs, times, tmax, hoist: bool = True):
     """Kernel K5a: (R,) bool, some sphere, plane or tiny-mesh triangle hit
     with 0 < t < tmax, as ``accel/sweep.py::sweep_any``."""
     occ = torch.empty((origins.shape[0],), dtype=torch.bool, device=origins.device)
-    _launch("sweep_any", scene, origins, dirs, times, tmax, (occ,))
+    _launch("sweep_any", scene, origins, dirs, times, tmax, (occ,), hoist)
     return occ
 
 
@@ -355,23 +359,23 @@ def _rays(origins, dirs, times):
     return origins.detach().contiguous(), dirs.detach().contiguous(), times.detach().contiguous()
 
 
-def sweep_closest(scene, origins, dirs, times):
+def sweep_closest(scene, origins, dirs, times, hoist: bool = True):
     """Closest sphere, plane or tiny-mesh hit of each ray, (t, prim, tri):
     kernel K5c on CUDA tensors, ``accel/sweep.py::sweep_closest`` on CPU
-    tensors."""
+    tensors. ``hoist``: ``render/trace.py::STATIC_TRANSFORM_HOIST``."""
     o, d, tm = _rays(origins, dirs, times)
     if _on_cpu(o):
-        return _plain.sweep_closest(scene, o, d, tm)
-    return sweep_closest_cuda(scene, o, d, tm)
+        return _plain.sweep_closest(scene, o, d, tm, hoist=hoist)
+    return sweep_closest_cuda(scene, o, d, tm, hoist)
 
 
-def sweep_any(scene, origins, dirs, times, tmax):
+def sweep_any(scene, origins, dirs, times, tmax, hoist: bool = True):
     """Occlusion by a sphere, plane or tiny-mesh triangle with
     0 < t < tmax: kernel K5a on CUDA tensors, ``accel/sweep.py::sweep_any``
-    on CPU tensors."""
+    on CPU tensors. ``hoist``: as ``sweep_closest``'s."""
     o, d, tm = _rays(origins, dirs, times)
     tmax = torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32, device=o.device),
                               (o.shape[0],)).contiguous()
     if _on_cpu(o):
-        return _plain.sweep_any(scene, o, d, tm, tmax)
-    return sweep_any_cuda(scene, o, d, tm, tmax)
+        return _plain.sweep_any(scene, o, d, tm, tmax, hoist=hoist)
+    return sweep_any_cuda(scene, o, d, tm, tmax, hoist)

@@ -6,10 +6,18 @@ with ``tmax = +inf`` and a balance-heuristic weight against the BSDF
 pdf. The area lights follow under draws 1, 2, ... (0, 1, ... without a
 probe): "all" traces one shadow ray per light sample; "power" picks one
 light per lane from ``SceneFlat.light_pmf`` and traces one shadow ray,
-with the pmf folded into the light pdf. Shadow visibility is the JAX
-default segment-occlusion query (``NEE_CLOSEST_SHADOW=False``):
-``trace_any`` up to ``dist - PORTAL_TOL``, with the sampled light's own
-emission and distance.
+with the pmf folded into the light pdf.
+
+Area-light shadow visibility follows ``NEE_CLOSEST_SHADOW``, read at call
+time as in the JAX package. False (the default) is the segment-occlusion
+query: ``trace_any`` up to ``dist - PORTAL_TOL``, with the sampled light's
+own emission and distance (kernel K5a, and K4 on big meshes, on the
+card). True is the reference's estimator: a closest hit of the shadow ray
+(``trace_closest``: K5c and its refit, K3 and the shortlist rounds on big
+meshes), accepted when |t - dist| <= ``PORTAL_TOL``, with t as the light
+distance and the emission of the primitive hit, gathered by
+``_GatherRows`` (one-hot backward). The probe's shadow ray is an
+occlusion query in both forms.
 """
 
 from __future__ import annotations
@@ -29,20 +37,25 @@ from ..core.math import (
 )
 from ..core.sampling import Prefixed, uniform_sample_sphere, uniform_sample_triangle
 from ..core.search import lower_bound
-from ..scene.model import MESH, SPHERE, SceneFlat
+from ..scene.model import MESH, SPHERE, SceneFlat, _GatherRows
+from . import trace
 from .probe import probe_sample_uniforms
-from .trace import prim_transform, trace_any
+from .trace import prim_transform, trace_any, trace_closest
 
 RAY_EPS = 1e-4  # kRayEpsilon
 K_BSDF_SAMPLES = 1.0
 K_PROBE_SAMPLES = 1.0
 PORTAL_TOL = 1e-2  # kTolerance
+NEE_CLOSEST_SHADOW = False  # True: the reference's closest-hit shadow
+# estimator (module docstring); False: segment occlusion
 
 
 def primitive_sample(scene: SceneFlat, j: int, times, uniforms):
     """Uniform-area sample on light primitive j at per-ray times, from three
     uniforms ``(u0, u1, u2)``. Returns world-space (pos (R,3), normal (R,3),
-    area (R,)), the area at the interpolated scale."""
+    area (R,)), the area at the interpolated scale. A mesh light's vertices
+    and normals are detached unless ``trace.MESH_VERTEX_GRADS``: its
+    position and size gradients flow through the transform."""
     ps = scene.prim_static[j]
     tr = prim_transform(scene, j, times)
     u0, u1, u2 = uniforms
@@ -62,8 +75,7 @@ def primitive_sample(scene: SceneFlat, j: int, times, uniforms):
         tri = torch.clamp(tri, h.tri_offset, h.tri_offset + h.num_tris - 1).long()
         bu, bv = uniform_sample_triangle(u1, u2)
         bw = 1.0 - bu - bv
-        a, b, c = pool.gather_tri(tri)
-        n0, n1, n2 = pool.gather_normals(tri)
+        a, b, c, n0, n1, n2 = trace._vertices(pool, tri)
         pos_l = bu[..., None] * a + bv[..., None] * b + bw[..., None] * c
         nrm_l = bu[..., None] * n0 + bv[..., None] * n1 + bw[..., None] * n2
         pos = transform_point(tr, pos_l)
@@ -99,10 +111,23 @@ def _probe_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
     return torch.where(ok[..., None], contrib, torch.zeros_like(contrib)) / K_PROBE_SAMPLES
 
 
+def _closest_shadow(scene: SceneFlat, shadow_o, wi, times, dist):
+    """The reference's shadow estimator: (accept, light distance, (R, 3)
+    emission) from the closest hit of each shadow ray."""
+    sh = trace_closest(scene, shadow_o, wi, times)
+    hit_any = sh.prim >= 0
+    t = torch.where(hit_any, sh.t, 0.0)
+    accept = hit_any & (torch.abs(t - dist) <= PORTAL_TOL)
+    (emission,) = _GatherRows.apply(torch.clamp(sh.prim, min=0).long(),
+                                    scene.materials.emission)
+    return accept, t, emission
+
+
 def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
     """One light per lane, picked from the power pmf by the uniform (999,)
     of ``source``; light jj's candidate sample reads (jj, k). Every
     candidate is evaluated, the shadow ray is traced once."""
+    closest = NEE_CLOSEST_SHADOW
     shape = tuple(times.shape)
     li = list(scene.light_indices)
     pmf_l = torch.stack([scene.light_pmf[j] for j in li])  # (L,)
@@ -122,18 +147,23 @@ def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
         nrm = torch.where(m[..., None], nj, nrm)
         area = torch.where(m, aj, area)
         pmf_sel = torch.where(m, pmf_l[jj], pmf_sel)
-        emission = torch.where(m[..., None], scene.materials.emission[j], emission)
+        if not closest:  # the sampled light's emission
+            emission = torch.where(m[..., None], scene.materials.emission[j], emission)
 
     wi_un = pos - p
     dist = torch.sqrt(torch.clamp(length_sq(wi_un), min=1e-20))
     wi = wi_un / dist[..., None]
     shadow_o = p + face_forward(n, wi) * RAY_EPS
-    accept = ~trace_any(scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0))
+    if closest:
+        accept, light_t, emission = _closest_shadow(scene, shadow_o, wi, times, dist)
+    else:
+        accept = ~trace_any(scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0))
+        light_t = dist
     nl = torch.abs(dot(nrm, wi))
     accept = accept & (nl >= 1e-6) & (pmf_sel > 0.0)
     # the selection pmf folds into the NEE pdf; one sample per strategy, so
     # the balance-heuristic coefficients (1/2 each) cancel
-    light_pdf = pmf_sel * (dist * dist) / torch.clamp(area * nl, min=1e-12)
+    light_pdf = pmf_sel * (light_t * light_t) / torch.clamp(area * nl, min=1e-12)
     bpdf = bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
     f = bsdf_eval(mat, eta_i, eta_o, n, wo, wi)
     accept = accept & (bpdf > 0.0)
@@ -178,14 +208,17 @@ def sample_lights(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source,
             wi = wi_un / dist[..., None]
 
             shadow_o = p + face_forward(n, wi) * RAY_EPS
-            # segment occlusion: anything strictly before the sampled point
-            # (minus the portal tolerance) blocks
-            occ = trace_any(
-                scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0)
-            )
-            accept = ~occ
-            light_t = dist
-            emission = torch.broadcast_to(scene.materials.emission[j], p.shape)
+            if NEE_CLOSEST_SHADOW:
+                accept, light_t, emission = _closest_shadow(scene, shadow_o, wi, times, dist)
+            else:
+                # segment occlusion: anything strictly before the sampled
+                # point (minus the portal tolerance) blocks
+                occ = trace_any(
+                    scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0)
+                )
+                accept = ~occ
+                light_t = dist
+                emission = torch.broadcast_to(scene.materials.emission[j], p.shape)
 
             nl = torch.abs(dot(light_nrm, wi))
             accept = accept & (nl >= 1e-6)

@@ -179,10 +179,13 @@ def make_accumulate_fn(options: Options, samples_per_pass: int = 1):
 
 
 def render(scene_host, spp: int, seed: int = 0, options: Options = None,
-           samples_per_pass: int | None = None, device=None, source=None):
+           samples_per_pass: int | None = None, report_every: int = 0, device=None,
+           source=None):
     """Host loop: flatten, then accumulate ``spp`` samples in passes of at
     most ~1M rays. Returns the (H, W, 4) accumulation buffer (resolve with
-    core.color.resolve). ``device``: None means cuda (raises without a
+    core.color.resolve). ``report_every``: after every ``report_every``
+    passes, wait for the device (the JAX package's ``block_until_ready``;
+    the image is the same). ``device``: None means cuda (raises without a
     GPU). ``source``: a UniformSource; default ``PathUniforms(seed)`` on
     the device, the CLI's source, so ``seed`` gives the CLI's ``-seed``
     image."""
@@ -203,6 +206,8 @@ def render(scene_host, spp: int, seed: int = 0, options: Options = None,
     )
     for c in range(n_full):
         accum = step(accum, flat, cam, source, c)
+        if report_every and (c + 1) % report_every == 0 and accum.is_cuda:
+            torch.cuda.synchronize(accum.device)
     if rem:
         accum = make_accumulate_fn(options, rem)(accum, flat, cam, source, n_full)
     return accum

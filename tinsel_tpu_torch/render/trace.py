@@ -20,10 +20,15 @@ with a strict ``<``, so ties keep the earlier primitive. Each search's
 winner is then intersected again with grad enabled (``_refit`` for the
 sweep's, with its formulas, so t keeps its bits; the big batch's
 triangle with the walk's formula, ``accel/traverse.py::tri_refit``, so a
-ray through a seam keeps the hit that the walk found), vertices and
-normals detached (``MESH_VERTEX_GRADS = False`` there), so gradients
-reach the ray and the primitive's transform, radius or plane. The final
-normal is face-forwarded against the ray.
+ray through a seam keeps the hit that the walk found), so gradients reach
+the ray and the primitive's transform, radius or plane, and the pool's
+vertices and normals where ``MESH_VERTEX_GRADS`` is on. The final normal
+is face-forwarded against the ray.
+
+The JAX package's two switches of this module are read at call time, so
+``monkeypatch.setattr`` flips them: ``MESH_VERTEX_GRADS`` and
+``STATIC_TRANSFORM_HOIST`` (which reaches the sweep's layout and packed
+table as an argument).
 """
 
 from __future__ import annotations
@@ -59,6 +64,12 @@ from ..scene.model import MESH, PLANE, SPHERE, SceneFlat, _GatherRows
 
 INSTANCE_TOPK = 4  # candidate instances walked per shortlist round
 INSTANCE_TOPK_MIN = 12  # shortlist rounds engage above this instance count
+MESH_VERTEX_GRADS = False  # gradients into the pool's vertex and normal
+# planes (its gathers' backward is a scatter-add, MeshPool); off, every
+# read of the planes on a differentiated path is detached
+STATIC_TRANSFORM_HOIST = True  # a static primitive (start == end) takes
+# its start transform; off, every primitive interpolates at the ray's
+# time, so end_p/q/s get their (1 - t) / t share of the gradient
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +80,12 @@ class Hit:
 
 
 def prim_transform(scene: SceneFlat, i: int, times):
-    """Transform of primitive i at per-ray times (R,). A static primitive
-    (start == end) returns its start transform unbatched, as the JAX
-    package's STATIC_TRANSFORM_HOIST does."""
+    """Transform of primitive i at per-ray times (R,). Under
+    ``STATIC_TRANSFORM_HOIST`` a static primitive (start == end) returns
+    its start transform unbatched."""
     pr = scene.prims
     start = Transform(p=pr.start_p[i], q=pr.start_q[i], s=pr.start_s[i])
-    if not scene.prim_static[i].motion:
+    if STATIC_TRANSFORM_HOIST and not scene.prim_static[i].motion:
         return start
     end = Transform(p=pr.end_p[i], q=pr.end_q[i], s=pr.end_s[i])
     return interpolate_transform(start, end, times)
@@ -82,7 +93,7 @@ def prim_transform(scene: SceneFlat, i: int, times):
 
 def _prim_transforms_batched(scene: SceneFlat, idxs, times):
     """(I, R)-batched transforms of primitives ``idxs`` ((I, 1) when all
-    are static)."""
+    are static under ``STATIC_TRANSFORM_HOIST``)."""
     pr = scene.prims
     sel = torch.as_tensor(idxs, dtype=torch.long, device=pr.start_p.device)
     start = Transform(
@@ -90,7 +101,7 @@ def _prim_transforms_batched(scene: SceneFlat, idxs, times):
         q=pr.start_q[sel][:, None, :],
         s=pr.start_s[sel][:, None],
     )
-    if not any(scene.prim_static[i].motion for i in idxs):
+    if STATIC_TRANSFORM_HOIST and not any(scene.prim_static[i].motion for i in idxs):
         return start
     end = Transform(
         p=pr.end_p[sel][:, None, :],
@@ -213,12 +224,20 @@ def _instance_rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots
     return occ
 
 
+def _vertices(pool, gt):
+    """Vertices and vertex normals of triangles ``gt``, detached unless
+    ``MESH_VERTEX_GRADS``."""
+    rows = pool.gather_tri(gt) + pool.gather_normals(gt)
+    return rows if MESH_VERTEX_GRADS else tuple(x.detach() for x in rows)
+
+
 def _refit(scene: SceneFlat, lay, origins, dirs, times, prim, tri):
     """(t, normal) of each ray's sweep winner, taken again under autograd
     with the sweep's own formulas (``accel/sweep.py``), so t equals the
     sweep's bit for bit: the winning sphere at the ray's time, the winning
     plane, or the winning tiny-mesh triangle in its instance's frame
-    (vertices and normals detached). A miss gives (+inf, 0). The rows come
+    (vertices and normals detached unless ``MESH_VERTEX_GRADS``). A miss
+    gives (+inf, 0). The rows come
     from ``_GatherRows``, whose backward is a one-hot matmul, so gradient
     reaches only the winning row, as the JAX package's where-merge passes
     it."""
@@ -259,8 +278,7 @@ def _refit(scene: SceneFlat, lay, origins, dirs, times, prim, tri):
     if lay.groups:
         ow, dw = local_ray(p, q, s, o, d)
         gt = torch.clamp(tri, min=0).long()
-        v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
-        n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
+        v0, v1, v2, n0, n1, n2 = _vertices(scene.pool, gt)
         _, t_m, u, v, w, n_geo = ray_tri(v0.unbind(-1), v1.unbind(-1), v2.unbind(-1), ow, dw)
         n_geo = torch.stack(n_geo, -1)
         ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
@@ -337,8 +355,7 @@ def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits
     qw = (onehot[..., None] * tr_b.q).sum(dim=0)
 
     gt = toff.long()[inst] + torch.clamp(tri, min=0).long()
-    v0, v1, v2 = (x.detach() for x in scene.pool.gather_tri(gt))
-    n0, n1, n2 = (x.detach() for x in scene.pool.gather_normals(gt))
+    v0, v1, v2, n0, n1, n2 = _vertices(scene.pool, gt)
     # the walk's own formula, so t is the walk's bit for bit and a hit at
     # a seam of two triangles is kept
     _, t, u, v, w, n_geo = tri_refit(v0.unbind(-1), v1.unbind(-1), v2.unbind(-1),
@@ -358,10 +375,11 @@ def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits
 
 def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     """Closest hit over all primitives. origins/dirs (R, 3), times (R,)."""
-    lay = layout(scene.prim_static)
+    hoist = STATIC_TRANSFORM_HOIST
+    lay = layout(scene.prim_static, hoist)
     # the discrete search (kernel K5c on the card), then the winner again
     # under autograd
-    _, best_prim, tri = ops_sweep.sweep_closest(scene, origins, dirs, times)
+    _, best_prim, tri = ops_sweep.sweep_closest(scene, origins, dirs, times, hoist=hoist)
     best_t, best_n = _refit(scene, lay, origins, dirs, times, best_prim, tri)
 
     if lay.big:
@@ -381,9 +399,10 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
     dev = origins.device
     tmax = torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32, device=dev), (r,))
     # spheres, planes and tiny meshes: kernel K5a on the card
-    occ = ops_sweep.sweep_any(scene, origins, dirs, times, tmax)
+    hoist = STATIC_TRANSFORM_HOIST
+    occ = ops_sweep.sweep_any(scene, origins, dirs, times, tmax, hoist=hoist)
 
-    big = list(layout(scene.prim_static).big)
+    big = list(layout(scene.prim_static, hoist).big)
     if big:
         handles = [scene.prim_static[i].mesh for i in big]
         n_inst = len(big)
