@@ -7,7 +7,8 @@ Phases, each fatal on failure (exit code 1):
 
 1. the card: device name and ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (``nlm.cu``,
-   ``bvh.cu``, ``sweep.cu``; nvcc, sm_90a) and the BVH builder
+   ``bvh.cu`` with K3, K4, K7, K6c and K6a, ``sweep.cu``; nvcc, sm_90a)
+   and the BVH builder
    ``native/bvh_builder.cpp`` (g++), one compiler each, all at once;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main path and a few more (K1 at 37x53, 512^2 and
@@ -44,8 +45,10 @@ Phases, each fatal on failure (exit code 1):
    geometry;
 6. the BVH walks K3 (closest hit) and K4 (any hit) against their plain
    versions on the card: the 524k-triangle sphere with 65,536 parallel
-   rays, envmesh's first diffuse bounce and many_mesh's instance batch
-   (per-lane offsets), each captured from a render pass on the card;
+   rays, envmesh's first diffuse bounce (captured from a render pass on
+   the card) and many_mesh's instance batch (per-lane offsets: the first
+   round of the plain shortlist rounds, run on the card on the first
+   rounds call of each form of a render pass, whose own rounds are K6);
    each record names its launch geometry and its share of the bound; the
    seam count (``seam_count``) on the 524k sphere's rays and envmesh's
    camera and first-bounce rays: the lanes where K3 hits under the
@@ -54,8 +57,13 @@ Phases, each fatal on failure (exit code 1):
 7. big meshes: envmesh on the card against the CPU at equal draws, then
    the big-mesh forward path (envmesh 512x512 depth 4 at 16 spp,
    many_mesh 512x512 depth 2, instances16 512x512 depth 3) with K3/K4's
-   counts reset just before and read just after; then one pass of each
-   under the profiler: the walks' device time inside the pass;
+   and K6c/K6a's counts reset just before and read just after: envmesh
+   K3 (it has no light) and no K6; many_mesh and instances16 (above
+   INSTANCE_TOPK_MIN big instances) one K6 launch a rounds call and no
+   K3/K4, and every K6 launch of one more pass of each held against the
+   plain rounds on its own inputs, t bit for bit; then one pass of each
+   under the profiler:
+   the walks' (bvh_*: K3, K4, K6) device time inside the pass;
 8. the gradient step (``render_loss_and_grads``) on cornell and envmesh
    512x512 depth 4: card against CPU at equal draws at 64x64, peak
    memory, the fwd+bwd / fwd ratio at matched spp and the backward's top
@@ -74,14 +82,24 @@ Phases, each fatal on failure (exit code 1):
    counts reset just before and read just after, the same scene's
    complexity view (K7's count) and ``adaptive_render`` at a 16-spp
    budget; then one profiled pass of the probe scene;
-10. the trace as torch ops (what kernel K6 would replace): one
-    many_mesh pass's shortlist rounds replayed under the profiler: device
-    ms, launches and bound;
+10. K6, the shortlist rounds (``trace_ops_phase``): one 512x512 4-spp
+    pass of many_mesh, instances16 and the 81-instance grid
+    (``instances_scene(..., grid=9)``) through ``make_render_pass``, its
+    ms and its launches (one K6c / K6a launch a rounds call, no K3/K4);
+    every K6 launch of one more pass held against the plain rounds
+    (``accel/instances.py``: torch ops around K3/K4) on its own inputs,
+    every lane equal, t bit for bit; on the first call of each form, K6's
+    device ms (CUDA-graph replays) and the plain version's ms in turns,
+    each one's launches and device ms under the profiler, K6's eager call
+    ms and its bound (``rounds_work``: the entry table, the rays, and the
+    plain rounds' own walks); many_mesh's whole bounce-0 trace_closest
+    call under the profiler;
 11. scene files: every scene file of the repository that needs no asset
     from outside it, loaded through the port (``load_tin`` /
     ``load_tungsten``, mesh cache cold), flattened on the card and
-    rendered at its own width, height and maxDepth at 4 spp, K3/K4
-    counts reset just before the renders and read just after; then
+    rendered at its own width, height and maxDepth at 4 spp, K3/K4 and
+    K6 counts reset just before the renders and read just after (no file
+    has more than INSTANCE_TOPK_MIN big meshes: no K6 launch); then
     ``veach_mis.json`` on the card against the CPU at equal draws;
 12. ``scenes/ajaxenv.tin`` at real size with stand-ins for its two
     assets, written here: a binary PLY of the Perlin sphere at 267,912
@@ -108,7 +126,7 @@ Phases, each fatal on failure (exit code 1):
     K1 and K2 outputs are held against the plain filters on the run's own
     inputs within KERNEL_TOL, and the AOVs it gave K2 against
     ``render_aovs``; K7's steps against the plain count on the run's own
-    rays, lane by lane. Then the chunk guard on the card (a NaN on the
+    rays, lane by lane; no run launches K6. Then the chunk guard on the card (a NaN on the
     first attempt of pass 1: one rollback, a finite, reseeded buffer);
     ``python -m tinsel_tpu_torch`` in a subprocess; the HTTP viewer on a
     512x512 Cornell box in a thread (page, frame, status; denoise off,
@@ -124,8 +142,9 @@ Phases, each fatal on failure (exit code 1):
     (one all-reduce of the 512x512 RGBA f32 buffer timed; the sharded
     Cornell render); two gloo ranks (the all-reduce; the sharded render of
     Cornell and of the probe-lit envmesh on meshes (rays 2, spp 1) and
-    (1, 2), K3/K4 counts reset just before and read just after, and each
-    K3/K4 call of a rank held against the plain walk on its own inputs;
+    (1, 2), K3/K4 and K6 counts reset just before and read just after (no
+    K6: neither scene is above INSTANCE_TOPK_MIN), and each K3/K4 call of
+    a rank held against the plain walk on its own inputs;
     the sharded train step on (2, 1) with its ms and peak memory); four
     gloo stage ranks running the pipeline at ``n_micro`` 1 and 4. Images
     within rtol 2e-5 / atol 2e-6 of the unsharded sum, equal on every
@@ -139,9 +158,9 @@ Phases, each fatal on failure (exit code 1):
     the sweep's, the card against the CPU, end_p gradients);
     ``NEE_CLOSEST_SHADOW`` on (``closest_shadow_part``: the Cornell main
     path with its launch counts checked against those the code implies,
-    its ms per spp beside the switch off, many_mesh's K3 calls through the
-    shortlist rounds against the plain walk, the card against the CPU on
-    "all" and "power"); ``MESH_VERTEX_GRADS`` on (``vertex_grads_part``:
+    its ms per spp beside the switch off, many_mesh's shadow rays through
+    K6c (4 launches a pass, each against the plain rounds), the card
+    against the CPU on "all" and "power"); ``MESH_VERTEX_GRADS`` on (``vertex_grads_part``:
     card against CPU gradients of the vertex planes, the 512x512 gradient
     step on Cornell and envmesh against the switch off, the vertex
     backward's share and its candidate backwards on the step's own
@@ -278,7 +297,7 @@ def ptxas_summary(log: str):
         if m:
             args = re.findall(r"Li(\d+)E", m.group(2))
             inst = f"{m.group(1)}<{','.join(args)}>"
-        m = re.search(r"Compiling entry function '\w*?\d((?:bvh|sweep)_[a-z]+_kernel)"
+        m = re.search(r"Compiling entry function '\w*?\d((?:bvh|sweep)_[a-z_]+?_kernel)"
                       r"(?:ILb([01])EE)?E", line)
         if m:  # a sweep kernel's template argument: its records move
             inst = m.group(1) + ({"0": "<static>", "1": "<motion>"}.get(m.group(2), ""))
@@ -1064,33 +1083,44 @@ def sphere_workload(dev):
 def bvh_inputs(dev):
     """The walks' inputs on the card: the 524k sphere, envmesh's first
     diffuse bounce (captured from a 512x512 pass) and many_mesh's instance
-    batches (captured from a 512x512 pass: the shortlist rounds' lanes
-    with per-lane offsets; the NEE shadow rays). {tag: {"closest": args,
-    "any": args}}, args as the wrappers take them."""
+    batches (the first round of the plain shortlist rounds, run on the
+    card on the first ``_instance_rounds`` / ``_instance_rounds_any`` call
+    of a 512x512 pass, whose own rounds are K6: lanes with per-lane
+    offsets; the NEE shadow rays). {tag: {"closest": args, "any": args}},
+    args as the wrappers take them."""
+    from tinsel_tpu_torch.accel import instances as plain_rounds
     from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.ops import bvh as ops_bvh
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
     from tinsel_tpu_torch.scene.presets import envmesh_scene, many_mesh_scene
 
-    from tinsel_tpu_torch.render import integrator
+    from tinsel_tpu_torch.render import integrator, trace
 
     inputs = {"sphere524k": {"closest": sphere_workload(dev)}}
-    for name, sc in (("envmesh", envmesh_scene(BIG_W, BIG_H, 4)),
-                     ("many_mesh", many_mesh_scene(48, BIG_W, BIG_H, 2))):
-        flat = sc.flatten(dev)
-        cam = CameraParams.from_host(sc.camera, dev)
-        with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
-            traced = capture_calls(((integrator, "trace_closest"),), lambda: make_render_pass(
-                sc.options)(flat, cam, PathUniforms(9, dev)))["trace_closest"]
-        if name == "envmesh":  # camera rays and the first bounce
-            seam_count(flat, traced[:2], f"envmesh {BIG_W}x{BIG_H} bounces 0-1")
-        del traced
-        closest, anyh = cap.calls["closest_hit"], cap.calls["any_hit"]
-        if name == "envmesh":  # bounce 1: the first diffuse bounce
-            inputs[name] = {"closest": closest[1]}
-        else:
-            inputs[name] = {"closest": closest[0], "any": anyh[0]}
+    sc = envmesh_scene(BIG_W, BIG_H, 4)
+    flat = sc.flatten(dev)
+    cam = CameraParams.from_host(sc.camera, dev)
+    with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
+        traced = capture_calls(((integrator, "trace_closest"),), lambda: make_render_pass(
+            sc.options)(flat, cam, PathUniforms(9, dev)))["trace_closest"]
+    seam_count(flat, traced[:2], f"envmesh {BIG_W}x{BIG_H} bounces 0-1")  # camera, bounce 1
+    del traced
+    inputs["envmesh"] = {"closest": cap.calls["closest_hit"][1]}  # the first diffuse bounce
+
+    sc = many_mesh_scene(48, BIG_W, BIG_H, 2)
+    flat = sc.flatten(dev)
+    cam = CameraParams.from_host(sc.camera, dev)
+    with torch.no_grad():
+        rounds = capture_calls(((trace, "_instance_rounds"), (trace, "_instance_rounds_any")),
+                               lambda: make_render_pass(sc.options)(flat, cam, PathUniforms(9, dev)))
+        with CaptureWalks(ops_bvh) as cap:
+            for name, fn in (("_instance_rounds", plain_rounds.rounds_closest),
+                             ("_instance_rounds_any", plain_rounds.rounds_any)):
+                a, k = rounds[name][0]
+                fn(*a, **k)
+    del rounds
+    inputs["many_mesh"] = {"closest": cap.calls["closest_hit"][0], "any": cap.calls["any_hit"][0]}
     return inputs
 
 
@@ -1163,8 +1193,9 @@ def bigmesh_path(ops_bvh, dev):
     pass's device busy time and its ms in the timed run."""
     from tinsel_tpu_torch.core.color import resolve
     from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.render.camera import CameraParams
-    from tinsel_tpu_torch.render.renderer import make_accumulate_fn
+    from tinsel_tpu_torch.render.renderer import make_accumulate_fn, make_render_pass
 
     t0 = time.perf_counter()
     scenes = big_scenes()
@@ -1175,10 +1206,11 @@ def bigmesh_path(ops_bvh, dev):
                          for n, (f, _) in flats.items()}))
     torch.cuda.synchronize()
     ops_bvh.reset_launch_counts()
+    ops_instances.reset_launch_counts()
     per_scene = {}
     for name, depth, spp in BIG_SCENES:
         flat, cam = flats[name]
-        before = dict(ops_bvh.launch_counts)
+        before = {**ops_bvh.launch_counts, **ops_instances.launch_counts}
         spp_pass = spp_per_pass(spp)
         step = make_accumulate_fn(scenes[name].options, spp_pass)
         source = PathUniforms(0, dev)
@@ -1198,16 +1230,47 @@ def bigmesh_path(ops_bvh, dev):
         per_scene[name] = dict(
             depth=depth, spp=spp, render_s=secs, ms_per_spp=secs * 1e3 / spp,
             pass_ms=secs * 1e3 / (spp // spp_pass), rays_per_s=rays / secs, image_mean=mean,
-            launches={k: v - before[k] for k, v in ops_bvh.launch_counts.items()},
+            passes=spp // spp_pass,
+            launches={k: v - before[k] for k, v in {**ops_bvh.launch_counts,
+                                                    **ops_instances.launch_counts}.items()},
         )
-    launches = {k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}
+    launches = {k: v for k, v in {**ops_bvh.launch_counts, **ops_instances.launch_counts}.items()
+                if k != "bvh_steps"}
     emit(dict(phase="bigmesh_path", size=f"{BIG_W}x{BIG_H}",
               ray_count="W*H*depth*(1+shadow rays) per spp", scenes=per_scene,
               launches=launches))
-    if min(launches.values()) < 1:
-        fail(f"big-mesh path: a BVH kernel was never launched: {launches}")
+    # envmesh walks by K3 (it has no light: no K4); many_mesh's shadow rays
+    # and every walk of many_mesh and instances16 go through K6
+    if min(launches[k] for k in ("bvh_closest", "rounds_closest", "rounds_any")) < 1:
+        fail(f"big-mesh path: a walk kernel was never launched: {launches}")
+    # the scenes above INSTANCE_TOPK_MIN big instances walk through K6 alone:
+    # one K6c / K6a launch a rounds call (counted in one more pass of each),
+    # each held against the plain rounds on its own inputs; envmesh none
+    held = {}
+    for name, _, spp in BIG_SCENES:
+        got = per_scene[name]["launches"]
+        if name == "envmesh":
+            if got["rounds_closest"] or got["rounds_any"]:
+                fail(f"big-mesh path: envmesh (one mesh) launched K6: {got}")
+            continue
+        flat, cam = flats[name]
+        outs = {}
+        with torch.no_grad():
+            calls = capture_calls(((ops_instances, "rounds_closest"),
+                                   (ops_instances, "rounds_any")),
+                                  lambda: make_render_pass(scenes[name].options, spp_per_pass(spp))(
+                                      flat, cam, PathUniforms(0, dev)), outs)
+        held[name] = hold_rounds(calls, outs)
+        del calls, outs
+        want = {"bvh_closest": 0, "bvh_any": 0,
+                **{k: per_scene[name]["passes"] * held[name][k]["calls"]
+                   for k in ("rounds_closest", "rounds_any")}}
+        per_scene[name]["k6_held"] = held[name]
+        if {k: got[k] for k in want} != want or not held[name]["rounds_closest"]["calls"]:
+            fail(f"big-mesh path: {name} launched {got}, expected {want}")
+    emit(dict(phase="bigmesh_k6_held", scenes=held))
     walks_in_pass(dev, scenes, flats, per_scene)
-    return launches, per_scene
+    return launches, per_scene, held
 
 
 def device_events(prof):
@@ -1710,6 +1773,44 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
 # ---------------------------------- the trace: K5 against torch ops, K6
 
 
+def rounds_differ(out, ref) -> tuple:
+    """(lanes where a K6 output differs from the plain rounds' -- t by its
+    bits, tri, inst, or the occlusion bit --, the largest |t - t_ref| over
+    lanes where both are finite, +inf if finiteness differs)."""
+    if torch.is_tensor(out):  # K6a
+        return int((out != ref).sum()), float(bool((out != ref).any()))
+    (t, tri, inst), (t_ref, tri_ref, inst_ref) = out, ref
+    bad = ((t.view(torch.int32) != t_ref.view(torch.int32)) | (tri != tri_ref)
+           | (inst != inst_ref))
+    fin = torch.isfinite(t_ref)
+    if not torch.equal(torch.isfinite(t), fin):
+        return int(bad.sum()), float("inf")
+    return int(bad.sum()), float((t - t_ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def hold_rounds(calls, outs) -> dict:
+    """Each K6c / K6a launch (a call of ops/instances.py's dispatchers
+    captured with its output by ``capture_calls``) against the plain
+    rounds (accel/instances.py) on the same inputs: every lane equal, t bit
+    for bit. Fails on a mismatch."""
+    from tinsel_tpu_torch.accel import instances as plain_rounds
+
+    rec = {}
+    for name in ("rounds_closest", "rounds_any"):
+        rays = mismatched = 0
+        err = 0.0
+        for (a, k), out in zip(calls.get(name, []), outs.get(name, [])):
+            n, e = rounds_differ(out, getattr(plain_rounds, name)(*a, **k))
+            rays += a[1].shape[1]
+            mismatched += n
+            err = max(err, e)
+        rec[name] = dict(calls=len(calls.get(name, [])), rays=rays, mismatched=mismatched,
+                         max_abs_err=err)
+        if mismatched:
+            fail(f"{name}: K6 differs from the plain rounds on {mismatched} of {rays} rays")
+    return rec
+
+
 def capture_calls(targets, run, outs=None):
     """Run ``run()`` with every (module, name) of ``targets`` wrapped to
     record its arguments (tensors cloned): {name: [(args, kwargs), ...]}.
@@ -1844,18 +1945,54 @@ def sweep_work(flat, stats, closest: bool, hoist: bool = True):
     return nbytes, ops
 
 
-def rounds_work(inst: int, rays: int, rounds: int, closest: bool):
-    """(bytes, f32 operations) of K6's own work, the shortlist rounds
-    around the walks: the (I, R) box-entry table read once, each ray's
-    best t (or tmax and occlusion) in, the local rays of the walked
-    candidates read once (at most all I of them), and (t, tri, inst) or
-    the occlusion bit out; each of the k picks of a round compares the I
-    entries of every ray."""
-    from tinsel_tpu_torch.render.trace import INSTANCE_TOPK
+def rounds_work(inst: int, rays: int, rounds: int, walked: int, stats, closest: bool):
+    """(bytes, f32 operations) of one K6 call, counted on the plain rounds
+    of the same inputs: the (I, R) box-entry table read once, each ray's
+    best t (or tmax and occlusion) in and (t, tri, inst) or the occlusion
+    bit out, the (I,) offsets once, the local ray of each (instance, ray)
+    lane the plain version walks (``walked``, over its ``rounds`` rounds)
+    and each node row and leaf block those walks read, once (``stats``:
+    the plain walks' counts, ``bvh_work``); each of the k picks of a round
+    compares the I entries of every ray, and the walks' slab and triangle
+    tests."""
+    from tinsel_tpu_torch.accel.instances import INSTANCE_TOPK
 
-    walked = min(inst, rounds * INSTANCE_TOPK)
     lane = 4 + 16 if closest else 4 + 1 + 1
-    return 4 * inst * rays + 24 * walked * rays + lane * rays, rounds * INSTANCE_TOPK * inst * rays
+    (walk_bytes, walk_ops), _ = bvh_work(stats, 0, False, 0)
+    nbytes = 4 * inst * rays + 8 * inst + lane * rays + 24 * walked + walk_bytes
+    return nbytes, rounds * INSTANCE_TOPK * inst * rays + walk_ops
+
+
+def plain_round_walks(ops_bvh, fn, args, closest: bool):
+    """The plain rounds on ``args`` with their K3 / K4 calls captured, and
+    the work of those walks: (rounds, lanes walked (tmax > 0), the plain
+    walk's merged stats on those lanes)."""
+    from tinsel_tpu_torch.accel import traverse as plain_walks
+
+    with torch.no_grad(), CaptureWalks(ops_bvh) as cap:
+        fn(*args)
+    walk = plain_walks.intersect_mesh if closest else plain_walks.intersect_mesh_any
+    calls = cap.calls["closest_hit" if closest else "any_hit"]
+    merged = dict(visits=0, blocks=0, node_rows=None, block_rows=None)
+    walked = 0
+    for pool, noff, toff, o, d, tmax, slots in calls:
+        live = tmax > 0
+        walked += int(live.sum())
+        if not bool(live.any()):
+            continue
+        st = {}
+        walk(pool, noff[live], toff[live], o[live], d[live], tmax[live], stack_slots=slots,
+             stats=st)
+        if "node_rows" not in st:
+            continue
+        merged["visits"] += st["visits"]
+        merged["blocks"] += st["blocks"]
+        for key in ("node_rows", "block_rows"):
+            merged[key] = st[key] if merged[key] is None else merged[key] | st[key]
+    if merged["node_rows"] is None:
+        merged.update(node_rows=torch.zeros(1, dtype=torch.bool),
+                      block_rows=torch.zeros(1, dtype=torch.bool))
+    return len(calls), walked, merged
 
 
 def old_trace_closest(scene, origins, dirs, times):
@@ -2099,60 +2236,144 @@ def profiler_probe(call, reps: int = 8) -> dict:
     return out
 
 
-def trace_ops_phase(dev):
-    """Phase 10. K6 as the port runs it, torch ops around the walk kernels:
-    the shortlist rounds of a many_mesh pass (48 meshes, 512x512, 4 spp,
-    depth 2), the first call of each form and the whole pass, beside the
-    whole trace_closest call around the first, with the bound of the work
-    (``rounds_work``): device ms and launches from the profiler, the
-    call's ms under CUDA events."""
+K6_SCENES = (("many_mesh", 2), ("instances16", 3), ("grid81", 3))  # (scene, depth)
+
+
+def k6_call_record(args, kind: str, closest: bool, held: dict) -> dict:
+    """K6c / K6a and the plain rounds on one call's arguments (K6's output
+    already held, ``held``): K6's device ms by CUDA-graph replays and the
+    plain version's by CUDA events, in turns plain, K6, K6, plain; K6's
+    eager call ms; launches a call: K6's and the plain version's K3/K4 as
+    the wrappers count them, the plain version's torch ops and their
+    device ms under the profiler (which can miss a kernel launched
+    through ctypes, so it counts none of those); the bound from the plain
+    rounds' own walks."""
+    from tinsel_tpu_torch.accel import instances as plain_rounds
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+    from tinsel_tpu_torch.ops import instances as ops_instances
+
+    kernel = getattr(ops_instances, f"{kind}_cuda")
+    plain_fn = getattr(plain_rounds, kind)
+    rounds, walked, stats = plain_round_walks(ops_bvh, plain_fn, args, closest)
+    inst, rays = args[1].shape[:2]
+    bound_ms, bound_by = bound(rounds_work(inst, rays, rounds, walked, stats, closest))
+    k6_ms, plain_ms = [], []
+    with torch.no_grad():
+        for turn in ("plain", "k6", "k6", "plain"):
+            if turn == "plain":
+                plain_ms.append(_event_ms(lambda: plain_fn(*args), 1))
+            else:
+                k6_ms.append(device_ms(kernel, [args]))
+        k6_call_ms = call_ms(kernel, [args])
+        walk = "bvh_closest" if closest else "bvh_any"
+        before = {**ops_instances.launch_counts, walk: ops_bvh.launch_counts[walk]}
+        kernel(*args)
+        k6_launches = ops_instances.launch_counts[kind] - before[kind]
+        prof_plain = profiled(lambda: plain_fn(*args))  # the plain version runs twice in it
+        plain_walks = (ops_bvh.launch_counts[walk] - before[walk]) // 2
+    if k6_launches != 1 or plain_walks != rounds:
+        fail(f"K6 {kind}: {k6_launches} launches a call, the plain version {plain_walks} walks "
+             f"in {rounds} rounds")
+    kernel_ms = statistics.mean(k6_ms)
+    return dict(
+        phase="k6", kernel=kind, instances=inst, rays=rays, plain_rounds=rounds,
+        walked_lanes=walked, kernel_ms=kernel_ms, kernel_ms_turns=k6_ms,
+        kernel_call_ms=k6_call_ms, kernel_launches=k6_launches,
+        plain_ms=statistics.mean(plain_ms), plain_ms_turns=plain_ms,
+        plain_launches=prof_plain["launches"] - prof_plain["walk_launches"] + plain_walks,
+        plain_torch_op_launches=prof_plain["launches"] - prof_plain["walk_launches"],
+        plain_walk_launches=plain_walks, plain_device_ms=prof_plain["device_ms"],
+        plain_walk_device_ms_profiled=prof_plain["walk_device_ms"],
+        plain_walk_launches_profiled=prof_plain["walk_launches"],
+        bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+        max_abs_err=held["max_abs_err"], mismatched=held["mismatched"], library_ms=None,
+    )
+
+
+def k6_scene(name: str, depth: int):
+    from tinsel_tpu_torch.scene.presets import instances_scene, many_mesh_scene
+
+    return {"many_mesh": lambda: many_mesh_scene(48, BIG_W, BIG_H, depth),
+            "instances16": lambda: instances_scene(BIG_W, BIG_H, depth, grid=4),
+            "grid81": lambda: instances_scene(BIG_W, BIG_H, depth, grid=9)}[name]()
+
+
+def trace_ops_phase(dev, per_scene):
+    """Phase 10, K6: the shortlist rounds of one 512x512 4-spp pass of
+    many_mesh (48 meshes, 32 big), instances16 and the 81-instance grid,
+    through ``make_render_pass``. The pass timed after a warm-up one, its
+    K6 and K3/K4 launches counted (one K6c / K6a launch a rounds call, no
+    K3 / K4); one more pass with every K6 launch captured and held against
+    the plain rounds on its own inputs (``hold_rounds``). On every rounds
+    call of that pass (one a bounce and form): K6's device ms (CUDA-graph
+    replays) and the plain version's ms (CUDA events; it syncs the host
+    each round), in turns plain, K6, K6, plain; each one's launches and
+    device ms under the profiler and K6's eager call ms; the bound
+    (``rounds_work``, from the plain rounds' own walks,
+    ``plain_round_walks``). many_mesh also: its whole bounce-0
+    trace_closest call under the profiler. Returns (records by kernel,
+    holds by scene, launches of the timed passes)."""
     from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import bvh as ops_bvh
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.render import integrator, trace
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
-    from tinsel_tpu_torch.scene.presets import many_mesh_scene
 
-    def one_pass(sc):
+    recs = {"rounds_closest": [], "rounds_any": []}
+    held_all = {}
+    launches = {"rounds_closest": 0, "rounds_any": 0}
+    for name, depth in K6_SCENES:
+        sc = k6_scene(name, depth)
         flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
         spp = spp_per_pass(4)
+        run = make_render_pass(sc.options, spp)
+        src = PathUniforms(9, dev)
         with torch.no_grad():
-            make_render_pass(sc.options, spp)(flat, cam, PathUniforms(9, dev))
-        return flat
-
-    recs = {}
-    sc = many_mesh_scene(48, BIG_W, BIG_H, 2)
-    calls = capture_calls(((trace, "_instance_rounds"), (trace, "_instance_rounds_any"),
-                           (integrator, "trace_closest")), lambda: one_pass(sc))
-    # the whole closest-hit trace of bounce 0, around the rounds: the
-    # instances' local rays and box tests over every (instance, ray) pair
-    args, kw = calls["trace_closest"][0]
-    whole = profiled(lambda: trace.trace_closest(*args, **kw))
-    emit(dict(phase="trace_ops", what="many_mesh trace_closest bounce 0 (whole call)",
-              rays=args[1].shape[0], **whole))
-    del args, kw
-    for name, closest in (("_instance_rounds", True), ("_instance_rounds_any", False)):
-        calls_n = calls[name]
-        o_l = calls_n[0][0][1]
-        inst, rays = o_l.shape[:2]
-        fn = getattr(trace, name)
-        first = profiled(lambda: fn(*calls_n[0][0], **calls_n[0][1]))
-        whole = profiled(lambda: [fn(*a, **k) for a, k in calls_n])
-        with torch.no_grad():
-            call_ms_ = _event_ms(lambda: fn(*calls_n[0][0], **calls_n[0][1]), 1)
-        bound_ms, bound_by = bound(rounds_work(inst, rays, first["walk_launches"], closest))
-        own_ms = first["device_ms"] - first["walk_device_ms"]
-        rec = dict(phase="trace_ops", what=f"K6 many_mesh {name}", first_call=first,
-                   call_ms=call_ms_, own_device_ms=own_ms,
-                   own_launches=first["launches"] - first["walk_launches"],
-                   bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / own_ms,
-                   calls_per_pass=len(calls_n), pass_device_ms=whole["device_ms"],
-                   pass_launches=whole["launches"],
-                   pass_own_device_ms=whole["device_ms"] - whole["walk_device_ms"],
-                   pass_own_launches=whole["launches"] - whole["walk_launches"],
-                   instances=inst, rays=rays)
-        emit(rec)
-        recs[f"K6 {name}"] = rec
-    return recs
+            run(flat, cam, src)  # warm-up
+            torch.cuda.synchronize()
+            ops_instances.reset_launch_counts()
+            ops_bvh.reset_launch_counts()
+            t0 = time.perf_counter()
+            run(flat, cam, src)
+            torch.cuda.synchronize()
+            pass_ms = (time.perf_counter() - t0) * 1e3
+            counted = {**ops_instances.launch_counts,
+                       **{k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}}
+            outs = {}
+            targets = [(ops_instances, "rounds_closest"), (ops_instances, "rounds_any")]
+            if name == "many_mesh":
+                targets.append((integrator, "trace_closest"))
+            calls = capture_calls(targets, lambda: run(flat, cam, src), outs)
+        held = held_all[name] = hold_rounds(calls, outs)
+        del outs
+        want = {"bvh_closest": 0, "bvh_any": 0,
+                **{k: held[k]["calls"] for k in ("rounds_closest", "rounds_any")}}
+        emit(dict(phase="k6_pass", scene=f"{name} {BIG_W}x{BIG_H} d{depth} {spp}spp",
+                  pass_ms=pass_ms, ms_per_spp=pass_ms / spp,
+                  ms_per_spp_bigmesh_path=per_scene.get(name, {}).get("ms_per_spp"),
+                  launches=counted, expected=want, held=held))
+        if counted != want or not held["rounds_closest"]["calls"]:
+            fail(f"K6 {name}: launches {counted} in a pass, expected {want}")
+        for k in launches:
+            launches[k] += counted[k]
+        if name == "many_mesh":
+            # the whole closest-hit trace of bounce 0, around the rounds:
+            # the sweep, the instances' local rays and box tests, the refit
+            args, kw = calls["trace_closest"][0]
+            whole = profiled(lambda: trace.trace_closest(*args, **kw))
+            emit(dict(phase="k6", what="many_mesh trace_closest bounce 0 (whole call)",
+                      rays=args[1].shape[0], **whole))
+            del args, kw
+        for kind, closest in (("rounds_closest", True), ("rounds_any", False)):
+            for i, (args, _) in enumerate(calls[kind]):
+                rec = k6_call_record(args, kind, closest, held[kind])
+                rec.update(scene=f"{name} {BIG_W}x{BIG_H} d{depth}",
+                           shape=f"{name} call {i + 1} of {len(calls[kind])} a pass")
+                emit(rec)
+                recs[kind].append(rec)
+        del calls
+    return recs, held_all, launches
 
 
 # ------------------------------------------------------------- scene files
@@ -2216,10 +2437,13 @@ def scene_files_phase(ops_bvh, dev):
     """Each scene file: load (the mesh cache cold), flatten on the card,
     then SCENE_FILE_SPP spp at the file's own width, height and maxDepth
     with K3/K4 counts reset just before the renders and read just after;
-    the image finite with a nonzero mean. Then veach_mis.json (the knob's
-    2,208 triangles through K3/K4) on the card against the CPU at equal
-    draws, 64x64 depth 4. Returns the renders' K3/K4 launches."""
+    the image finite with a nonzero mean; no file has more than
+    INSTANCE_TOPK_MIN big meshes, so K6 is counted and never launched.
+    Then veach_mis.json (the knob's 2,208 triangles through K3/K4) on the
+    card against the CPU at equal draws, 64x64 depth 4. Returns the
+    renders' K3/K4 (and K6) launches."""
     from tinsel_tpu_torch.core.color import resolve
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.render.camera import CameraParams
 
     loaded = {}
@@ -2234,9 +2458,11 @@ def scene_files_phase(ops_bvh, dev):
         fail("veach_mis.json: the knob (2,208 triangles) did not load")
 
     ops_bvh.reset_launch_counts()
+    ops_instances.reset_launch_counts()
+    kinds = ("bvh_closest", "bvh_any", "rounds_closest", "rounds_any")
     per = {}
     for name, (sc, flat, cam, load_s, flatten_s) in loaded.items():
-        before = dict(ops_bvh.launch_counts)
+        before = {**ops_bvh.launch_counts, **ops_instances.launch_counts}
         accum, secs, passes = accumulate(sc, flat, cam, SCENE_FILE_SPP, dev)
         mean = float(resolve(accum).mean())
         if not bool(torch.isfinite(accum).all()) or not mean > 0:
@@ -2246,12 +2472,16 @@ def scene_files_phase(ops_bvh, dev):
             size=f"{o.width}x{o.height}", depth=o.max_depth, triangles=sum(mesh_triangles(sc)),
             load_s=load_s, flatten_s=flatten_s, passes=passes,
             ms_per_spp=secs * 1e3 / SCENE_FILE_SPP, image_mean=mean,
-            launches={k: ops_bvh.launch_counts[k] - before[k] for k in ("bvh_closest", "bvh_any")})
-    launches = {k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}
+            launches={k: {**ops_bvh.launch_counts, **ops_instances.launch_counts}[k] - before[k]
+                      for k in kinds})
+    launches = {k: {**ops_bvh.launch_counts, **ops_instances.launch_counts}[k] for k in kinds}
     emit(dict(phase="scene_files", spp=SCENE_FILE_SPP, files=len(per), scenes=per,
               launches=launches))
-    if min(launches.values()) < 1:
+    if min(launches["bvh_closest"], launches["bvh_any"]) < 1:
         fail(f"scene files: a BVH kernel was never launched: {launches}")
+    if launches["rounds_closest"] or launches["rounds_any"]:
+        fail(f"scene files: K6 launched, but no file has more than INSTANCE_TOPK_MIN big "
+             f"meshes: {launches}")
     equal_draws_small(loaded["veach_mis.json"][0], 64, 64, 4, "veach_mis.json 64x64 d4 1spp", dev)
     return launches
 
@@ -2471,22 +2701,27 @@ def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
 # ----------------------------------------------------------- entry points
 
 KERNEL_NAMES = ("nlm_filter", "nlm_guided", "bvh_closest", "bvh_any", "bvh_steps",
-                "sweep_closest", "sweep_any")
+                "sweep_closest", "sweep_any", "rounds_closest", "rounds_any")
+K6_NAMES = ("rounds_closest", "rounds_any")  # no entry point's scene is above INSTANCE_TOPK_MIN
 CLI_LINE = re.compile(r"(\d+) spp in ([\d.]+)s \(([\d.]+) ms/spp, ([\d.]+) Mpaths/s\)")
 
 
 def reset_counts(ops_nlm, ops_bvh):
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.ops import sweep as ops_sweep
 
     ops_nlm.reset_launch_counts()
     ops_bvh.reset_launch_counts()
     ops_sweep.reset_launch_counts()
+    ops_instances.reset_launch_counts()
 
 
 def read_counts(ops_nlm, ops_bvh) -> dict:
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.ops import sweep as ops_sweep
 
-    counts = {**ops_nlm.launch_counts, **ops_bvh.launch_counts, **ops_sweep.launch_counts}
+    counts = {**ops_nlm.launch_counts, **ops_bvh.launch_counts, **ops_sweep.launch_counts,
+              **ops_instances.launch_counts}
     return {k: counts[k] for k in KERNEL_NAMES}
 
 
@@ -2624,7 +2859,7 @@ def entry_points_phase(ops_nlm, ops_bvh, dev, tmp: Path):
     _, secs, launches, line, (calls, outs) = cli_run(
         ops_nlm, ops_bvh, [cornell, "-spp", str(ENTRY_SPP), "-denoise", "-aov", "-o", str(out)],
         capture=k1)
-    need(launches, "cli -denoise", launched=("nlm_filter",), absent=("nlm_guided",))
+    need(launches, "cli -denoise", launched=("nlm_filter",), absent=("nlm_guided", *K6_NAMES))
     k1_err = hold_nlm(calls, outs, "nlm_denoise", plain.nlm_filter, "cli -denoise")
     img = png_image(out)
     if img.shape != (256, 256, 3) or not img.mean() > 5:
@@ -2661,7 +2896,8 @@ def entry_points_phase(ops_nlm, ops_bvh, dev, tmp: Path):
     _, secs, launches, line, (calls, outs) = cli_run(
         ops_nlm, ops_bvh, [cornell, "-spp", str(ENTRY_SPP), "-denoise-guided", "-o", str(out)],
         capture=k2)
-    need(launches, "cli -denoise-guided", launched=("nlm_guided",), absent=("nlm_filter",))
+    need(launches, "cli -denoise-guided", launched=("nlm_guided",),
+         absent=("nlm_filter", *K6_NAMES))
     k2_err = hold_nlm(calls, outs, "nlm_guided_denoise", plain.nlm_guided, "cli -denoise-guided")
     hold_aovs(calls, aov, "cli -denoise-guided")
     img = png_image(out)
@@ -2697,7 +2933,7 @@ def entry_points_phase(ops_nlm, ops_bvh, dev, tmp: Path):
     _, secs, launches, line, (calls, _) = cli_run(
         ops_nlm, ops_bvh, [veach, "-spp", "4", "-o", str(tmp / "veach.png")],
         capture=((color, "resolve"),))
-    need(launches, "cli veach_mis.json", launched=("bvh_closest", "bvh_any"))
+    need(launches, "cli veach_mis.json", launched=("bvh_closest", "bvh_any"), absent=K6_NAMES)
     acc = calls["resolve"][0][0][0]
     if tuple(acc.shape) != (720, 1280, 4) or not torch.isfinite(acc).all():
         fail(f"cli veach_mis.json: the buffer is {tuple(acc.shape)} or not finite")
@@ -2714,7 +2950,8 @@ def entry_points_phase(ops_nlm, ops_bvh, dev, tmp: Path):
                            str(tmp / "veach_cx.npz"), "-checkpoint-every", "1",
                            "-o", str(tmp / "veach_cx.png")],
         capture=((ops_bvh, "traversal_steps"),))
-    need(launches, "cli veach_mis.json -mode complexity", launched=("bvh_steps",))
+    need(launches, "cli veach_mis.json -mode complexity", launched=("bvh_steps",),
+         absent=K6_NAMES)
     steps = hold_steps(calls, outs, "cli veach_mis.json -mode complexity")
     acc = checkpoint_accum(tmp / "veach_cx.npz", "cli -mode complexity")
     record("cli veach_mis.json -mode complexity", secs, launches, spp=1, cli_line=line,
@@ -2728,7 +2965,8 @@ def entry_points_phase(ops_nlm, ops_bvh, dev, tmp: Path):
                            "-checkpoint", str(tmp / "ajaxenv.npz"), "-checkpoint-every", "4",
                            "-o", str(tmp / "ajaxenv.png")],
         capture=k2)
-    need(launches, "cli ajaxenv stand-in", launched=("bvh_closest", "bvh_any", "nlm_guided"))
+    need(launches, "cli ajaxenv stand-in", launched=("bvh_closest", "bvh_any", "nlm_guided"),
+         absent=K6_NAMES)
     k2_err = hold_nlm(calls, outs, "nlm_guided_denoise", plain.nlm_guided, "cli ajaxenv stand-in")
     sc = cli.load_scene(str(tmp / "ajaxenv.tin"))
     hold_aovs(calls, render_aovs(sc.flatten(dev), CameraParams.from_host(sc.camera, dev),
@@ -2986,6 +3224,7 @@ def mg_task(task, dev, ops_bvh) -> tuple:
     """One task of a rank: (scalars, arrays)."""
     import torch.distributed as dist
 
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.parallel import pipeline, sharding
 
     kind = task["kind"]
@@ -3021,10 +3260,11 @@ def mg_task(task, dev, ops_bvh) -> tuple:
         dist.barrier()
         torch.cuda.synchronize()
         ops_bvh.reset_launch_counts()
+        ops_instances.reset_launch_counts()
         calls = capture_calls(((ops_bvh, "closest_hit"), (ops_bvh, "any_hit")),
                               lambda: out.setdefault("img", fn(flat, cam, sources)), outs)
         torch.cuda.synchronize()
-        scalars["launches"] = dict(ops_bvh.launch_counts)
+        scalars["launches"] = {**ops_bvh.launch_counts, **ops_instances.launch_counts}
         dist.barrier()
         s = _synced_s(lambda: fn(flat, cam, sources))
         scalars["ms_per_spp"] = s * 1e3 / MG_PASSES
@@ -3181,7 +3421,7 @@ def multi_gpu_phase(dev, tmp: Path) -> dict:
             dict(name="pipeline cornell", kind="pipeline", scene="cornell",
                  rays=str(tmp / "mg_rays.npz"), n_micro=[1, 4])]),
     }
-    launches = {"bvh_closest": 0, "bvh_any": 0}
+    launches = {"bvh_closest": 0, "bvh_any": 0, "rounds_closest": 0, "rounds_any": 0}
     walk_err = {"bvh_closest": 0.0, "bvh_any": 0.0}
     for job, (world, backend, tasks) in jobs.items():
         t_job = time.perf_counter()
@@ -3235,6 +3475,9 @@ def multi_gpu_phase(dev, tmp: Path) -> dict:
                         min(r["launches"]["bvh_closest"], r["launches"]["bvh_any"]) < 1
                         for r in recs):
                     fail(f"multi_gpu {name}: K3 and K4 did not both launch in every rank")
+                if any(r["launches"][k] for r in recs for k in K6_NAMES):
+                    fail(f"multi_gpu {name}: K6 launched in a scene of at most "
+                         "INSTANCE_TOPK_MIN big meshes")
                 continue
             loss_rel = max(abs(r["loss"] - float(loss_u)) / abs(float(loss_u)) for r in recs)
             worst = max(_rel_err(a[f"{name}.{k}"], g, GRAD_ATOL, GRAD_RTOL)
@@ -3529,14 +3772,18 @@ def closest_shadow_part(ops_nlm, ops_bvh, dev) -> tuple:
       x 2 = 32, K5a = 0, K1 = 1, K3 = K4 = 0;
     * its ms per spp beside the switch off, in the turns on, off, off, on;
     * many_mesh_scene(48, 512, 512, 2) at 4 spp (one pass): the light's
-      shadow rays run K3 through the shortlist rounds; every K3 call of
-      the pass held against the plain walk on its own inputs;
+      shadow rays' closest hits run the shortlist rounds, K6c, beside the
+      path's: 2 bounces x 2 = 4 K6c launches, no K6a, K3 or K4; every
+      K6c launch of the pass held against the plain rounds on its own
+      inputs;
     * card against CPU at equal draws at 64x64: Cornell ("all") and
       Cornell with a second light in "power" mode.
 
-    Returns (launches of the Cornell and many_mesh runs, K3's worst error)."""
+    Returns (launches of the Cornell and many_mesh runs, K6c's worst
+    error)."""
     from tinsel_tpu_torch.core.color import resolve
     from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.ops import sweep as ops_sweep
     from tinsel_tpu_torch.render import lights, trace
     from tinsel_tpu_torch.render.camera import CameraParams
@@ -3548,16 +3795,18 @@ def closest_shadow_part(ops_nlm, ops_bvh, dev) -> tuple:
     passes = MAIN_SPP // spp_per_pass(MAIN_SPP, MAIN_W, MAIN_H)
     shadow = sum(flat.prim_static[j].light_samples for j in flat.light_indices)
     want = {"sweep_closest": passes * MAIN_DEPTH * (1 + shadow), "sweep_any": 0,
-            "nlm_filter": 1, "bvh_closest": 0, "bvh_any": 0}
+            "nlm_filter": 1, "bvh_closest": 0, "bvh_any": 0, "rounds_closest": 0,
+            "rounds_any": 0}
     with switched(lights, "NEE_CLOSEST_SHADOW", True):
         render(sc, spp=1, seed=1, device=dev)  # warm-up
         torch.cuda.synchronize()
-        for m in (ops_nlm, ops_sweep, ops_bvh):
+        for m in (ops_nlm, ops_sweep, ops_bvh, ops_instances):
             m.reset_launch_counts()
         accum = render(sc, spp=MAIN_SPP, seed=0, device=dev)
         den = ops_nlm.nlm_denoise(resolve(accum))
         torch.cuda.synchronize()
-        got = {**ops_sweep.launch_counts, **ops_bvh.launch_counts, **ops_nlm.launch_counts}
+        got = {**ops_sweep.launch_counts, **ops_bvh.launch_counts, **ops_nlm.launch_counts,
+               **ops_instances.launch_counts}
     got = {k: got[k] for k in want}
     emit(dict(phase="closest_shadow_main_path", scene=f"cornell {MAIN_W}x{MAIN_H} "
               f"d{MAIN_DEPTH} {MAIN_SPP}spp", launches=got, expected=want,
@@ -3593,20 +3842,23 @@ def closest_shadow_part(ops_nlm, ops_bvh, dev) -> tuple:
     try:
         with switched(lights, "NEE_CLOSEST_SHADOW", True), torch.no_grad():
             ops_bvh.reset_launch_counts()
-            calls = capture_calls(((ops_bvh, "closest_hit"), (ops_bvh, "any_hit")),
+            ops_instances.reset_launch_counts()
+            calls = capture_calls(((ops_instances, "rounds_closest"),
+                                   (ops_instances, "rounds_any")),
                                   lambda: run(flat, cam, PathUniforms(3, dev)), outs=outs)
             torch.cuda.synchronize()
-            mm_launches = dict(ops_bvh.launch_counts)
+            mm_launches = {**ops_bvh.launch_counts, **ops_instances.launch_counts}
     finally:
         trace._instance_rounds = orig_rounds
-    held = hold_walk_calls(calls, outs)
+    held = hold_rounds(calls, outs)
+    mm_want = {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0, "rounds_closest": 2 * 2,
+               "rounds_any": 0}
     emit(dict(phase="closest_shadow_many_mesh", scene=f"many_mesh 48 {BIG_W}x{BIG_H} d2 "
-              f"{spp_per_pass(4)}spp pass", launches=mm_launches,
-              instance_rounds_calls=rounds["n"], k3_held=held["closest_hit"]))
-    if (held["closest_hit"]["mismatched"] or not held["closest_hit"]["max_abs_err"] <= KERNEL_TOL
-            or rounds["n"] != 2 * 2 or mm_launches["bvh_any"] or not mm_launches["bvh_closest"]):
+              f"{spp_per_pass(4)}spp pass", launches=mm_launches, expected=mm_want,
+              instance_rounds_calls=rounds["n"], k6c_held=held["rounds_closest"]))
+    if rounds["n"] != 2 * 2 or mm_launches != mm_want:
         fail(f"closest-shadow many_mesh: {held}, rounds {rounds}, launches {mm_launches}")
-    for k in ("bvh_closest", "bvh_any"):
+    for k in ("bvh_closest", "bvh_any", "rounds_closest", "rounds_any"):
         launches[k] += mm_launches[k]
     del calls, outs
 
@@ -3616,7 +3868,7 @@ def closest_shadow_part(ops_nlm, ops_bvh, dev) -> tuple:
         two = two_lights_scene(64, 64, 3)
         two.options = dataclasses.replace(two.options, light_sampling="power")
         equal_draws_small(two, 64, 64, 3, "two lights 64x64 d3 power closest shadow", dev)
-    return launches, held["closest_hit"]["max_abs_err"]
+    return launches, held["rounds_closest"]["max_abs_err"]
 
 
 def vertex_grads_part(dev):
@@ -3817,15 +4069,15 @@ def range_device_ms(prof, name: str) -> tuple:
 
 def switches_phase(ops_nlm, ops_bvh, dev) -> tuple:
     """Item 15 of the module docstring. Returns (the sweep records of the
-    hoist-off part, the closest-shadow runs' launches, K3's worst error
+    hoist-off part, the closest-shadow runs' launches, K6c's worst error
     there)."""
     t0 = time.perf_counter()
     sweeps = hoist_off_part(dev)
-    launches, k3_err = closest_shadow_part(ops_nlm, ops_bvh, dev)
+    launches, k6_err = closest_shadow_part(ops_nlm, ops_bvh, dev)
     vertex_grads_part(dev)
     probe_texels_part(dev)
     emit(dict(phase="switches", seconds=time.perf_counter() - t0))
-    return sweeps, launches, k3_err
+    return sweeps, launches, k6_err
 
 
 def _rgbe_to_float_ref(rgbe):
@@ -3879,7 +4131,7 @@ def main():
 
     walks, walk_inputs = bvh_kernel_phase(dev)
     bigmesh_equal_draw_phase(dev)
-    big_launches, per_scene = bigmesh_path(ops_bvh, dev)
+    big_launches, per_scene, big_held = bigmesh_path(ops_bvh, dev)
     gradient_equal_draw_phase(dev)
     gradient_phase(ops_bvh, dev)
     trainer_phase(dev)
@@ -3888,7 +4140,7 @@ def main():
     walks["bvh_any"].append(k4_probe)
     integrator_equal_draw_phase(dev)
     probe_launches = probe_path(ops_nlm, ops_bvh, dev, per_scene["envmesh"])
-    trace_ops_phase(dev)
+    k6, k6_held, k6_launches = trace_ops_phase(dev, per_scene)
 
     from tinsel_tpu_torch.scene.loaders import mesh_io
 
@@ -3898,13 +4150,16 @@ def main():
         ajax_launches = ajaxenv_files_phase(ops_bvh, dev, Path(tmp))
         entry_launches = entry_points_phase(ops_nlm, ops_bvh, dev, Path(tmp))
         mg_launches, mg_walk_err = multi_gpu_phase(dev, Path(tmp))
-    sw_sweeps, sw_launches, sw_k3_err = switches_phase(ops_nlm, ops_bvh, dev)
+    sw_sweeps, sw_launches, sw_k6_err = switches_phase(ops_nlm, ops_bvh, dev)
     # K3/K4 on the big-mesh, probe and scene-file paths, K7 on the
-    # complexity view; every kernel on the entry points' runs
+    # complexity view, K6 on the big-mesh path and K6's passes; every
+    # kernel on the entry points' runs
     for k in ("bvh_closest", "bvh_any"):
         launches[k] = (big_launches[k] + probe_launches[k] + file_launches[k]
                        + ajax_launches[k])
     launches["bvh_steps"] = probe_launches["bvh_steps"]
+    for k in K6_NAMES:
+        launches[k] = big_launches[k] + k6_launches[k] + file_launches[k]
     # K5c/K5a: the main path's frame (phase 5), then the entry points
     for k in KERNEL_NAMES:
         launches[k] += entry_launches[k]
@@ -3943,8 +4198,7 @@ def main():
         table.append(dict(
             name=key, route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
             replaces=replaces, launches=launches[key],
-            max_abs_err=max([r["max_abs_err"] for r in walks[key]] + [mg_walk_err[key]]
-                            + ([sw_k3_err] if key == "bvh_closest" else [])),
+            max_abs_err=max([r["max_abs_err"] for r in walks[key]] + [mg_walk_err[key]]),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             bound_share=rec["bound_share"], library_ms=None,
@@ -3971,6 +4225,23 @@ def main():
             name=key, route="cuda", source="tinsel_tpu_torch/csrc/sweep.cu",
             replaces=replaces, launches=launches[key],
             max_abs_err=max(r["max_abs_err"] for r in sweeps[key]),
+            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
+        ))
+    # K6c/K6a at many_mesh's first rounds call of each form (bounce 0, 1M
+    # rays, 48 meshes); the error is the worst over every launch held
+    for key, replaces in (
+        ("rounds_closest", "tinsel_tpu/render/trace.py:267 _instance_rounds "
+                           "(_shortlist_candidates :251)"),
+        ("rounds_any", "tinsel_tpu/render/trace.py:330 _instance_rounds_any"),
+    ):
+        rec = next(r for r in k6[key] if r["shape"].startswith("many_mesh"))
+        errs = ([r["max_abs_err"] for r in k6[key]]
+                + [h[key]["max_abs_err"] for h in (*big_held.values(), *k6_held.values())]
+                + ([sw_k6_err] if key == "rounds_closest" else []))
+        table.append(dict(
+            name=key, route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
+            replaces=replaces, launches=launches[key], max_abs_err=max(errs),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
         ))

@@ -35,10 +35,12 @@ SCENES = {
     "many_mesh": ("many_mesh_scene", (20, 32, 32, 2)),
     "envmesh": ("envmesh_scene", (32, 32, 4, 24)),
 }
+# 81 instances of one capsule (a 9 x 9 grid): the rounds' stress case
+GRID81 = ("instances_scene", (32, 32, 3, 9))
 
 
 def _scenes(name):
-    preset, args = SCENES[name]
+    preset, args = SCENES[name] if name in SCENES else GRID81
     return (getattr(jpresets, preset)(*args).flatten(),
             getattr(tpresets, preset)(*args).flatten(device="cpu"))
 
@@ -82,7 +84,7 @@ def test_trace_matches_jax(name):
     assert ops_bvh.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
 
 
-@pytest.mark.parametrize("name", ["instances16", "many_mesh"])
+@pytest.mark.parametrize("name", ["instances16", "many_mesh", "grid81"])
 def test_shortlist_rounds_equal_the_full_batch(name, monkeypatch):
     """The top-k rounds give exactly what walking every (instance, ray)
     pair gives, closest and occlusion."""

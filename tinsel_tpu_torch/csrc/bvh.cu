@@ -1,11 +1,15 @@
 // Wide-BVH walks for Hopper (sm_90a): kernels K3 (closest hit), K4 (any
-// hit with t < tmax) and K7 (the closest-hit walk's step count).
+// hit with t < tmax), K7 (the closest-hit walk's step count), and K6c /
+// K6a (the instance shortlist rounds, closest hit and occlusion, which
+// walk with the same code; their note is above bvh_rounds_closest_kernel).
 //
 // Replaces: tinsel_tpu/accel/traverse.py:761 intersect_mesh (its walk
 // _run_tiled :635 / _traverse_tile :491 / _step :390), :903
-// intersect_mesh_any (_traverse_tile_any :811) and :963 traversal_cost
-// (_run_tiled with with_steps=True). In the JAX package these are pure
-// JAX lockstep loops over tiles of rays.
+// intersect_mesh_any (_traverse_tile_any :811), :963 traversal_cost
+// (_run_tiled with with_steps=True), and tinsel_tpu/render/trace.py:267
+// _instance_rounds / :330 _instance_rounds_any. In the JAX package these
+// are pure JAX lockstep loops over tiles of rays (the rounds a
+// jax.lax.while_loop around them).
 //
 // Layout (accel/build.py, built on the host):
 //   node row (72 floats, 288 B): cols [0,16) x, [16,32) y, [32,48) z child
@@ -183,12 +187,17 @@ __device__ __forceinline__ bool tri_hit(const float* b, const Ray& r, float& t) 
   return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
 }
 
-__device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
+// the ray whose origin and direction start at o and d
+__device__ __forceinline__ Ray load_ray_at(const float* o, const float* d) {
   Ray r;
-  r.ox = __ldg(o + 3 * i); r.oy = __ldg(o + 3 * i + 1); r.oz = __ldg(o + 3 * i + 2);
-  r.dx = __ldg(d + 3 * i); r.dy = __ldg(d + 3 * i + 1); r.dz = __ldg(d + 3 * i + 2);
+  r.ox = __ldg(o); r.oy = __ldg(o + 1); r.oz = __ldg(o + 2);
+  r.dx = __ldg(d); r.dy = __ldg(d + 1); r.dz = __ldg(d + 2);
   r.rx = safe_rcp(r.dx); r.ry = safe_rcp(r.dy); r.rz = safe_rcp(r.dz);
   return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
+  return load_ray_at(o + 3 * i, d + 3 * i);
 }
 
 // The lane's slot of a node row: its child's x, y, z box words and its
@@ -372,6 +381,199 @@ bool geometry_ok(int n, int slots, int threads, int rays_per_block, int smem, in
          smem == RAYS * slots * (int)sizeof(int) && n >= 1 && grid == (n + RAYS - 1) / RAYS;
 }
 
+// ---------------------------------------------------------------- K6
+//
+// K6c / K6a: every round of one call of the instance shortlist rounds
+// (plain version: tinsel_tpu_torch/accel/instances.py, which follows
+// tinsel_tpu/render/trace.py:267 _instance_rounds and :330
+// _instance_rounds_any) in one launch. A round takes, per ray, the k
+// nearest unvisited entries of the ray's column of the (I, R) box-entry
+// table tn (argmin's tie rule: the lower instance id), walks each pick
+// whose entry is below the best t at the round's start under that t, and
+// only then takes the closest of the k results (strict <, the lowest pick
+// on a tie); rounds repeat while an unvisited entry is below the best t.
+// The occlusion form ORs the walks' bits under a fixed tmax.
+//
+// What bounds it on this card: the walks, as K3's (a chain of dependent
+// row loads), plus the shortlist's scans of the ray's tn column, which
+// stay in L1/L2 after the first round.
+//
+// The design: one 16-lane group per ray, as K3, with K3's launch geometry
+// and shared-memory stacks, and the same walk().
+//   * No visited table: the plain rounds visit the entries in (tn, id)
+//     order, so the visited ones are exactly those at or before the last
+//     pick in that order, and the next pick is the least entry after it.
+//     Lane j scans entries j, j + 16, ... of the column (entry (i, r) at
+//     i * R + r, so neighbouring groups read neighbouring floats of a
+//     row), a shuffle reduction takes the least (tn, id). Nothing is
+//     written, and neither I nor R is capped.
+//   * A pick at +inf is never walked (inf < t is false), so the plain
+//     version's re-picks of +inf entries once a column is used up change
+//     nothing.
+//   * Per-ray exit: a group leaves when its next entry is not below its
+//     best t (K6a: when it is occluded, or its next entry is not below
+//     tmax). The plain version loops while any ray passes that test, but
+//     a ray that fails it only gets picks walked under tmax 0 (no walk),
+//     and it keeps failing: entries only grow and best t only shrinks.
+//   * Every pick of a round is walked under the round-start best t,
+//     never a t tightened by an earlier pick of the same round: the plain
+//     version gives every pick the same tmax, and a triangle can lie a
+//     rounding below its instance's box entry.
+//   * K6a stops at the first pick that occludes (the OR is then set).
+//   * Local rays are read at (id * R + r) * 3 and tn at id * R + r in
+//     64-bit arithmetic (48 instances of 2^20 rays are 1.5 * 2^27 floats;
+//     a few hundred instances of 4M rays pass 2^32).
+
+// (a, i) comes before (b, j) in the shortlist's order: the entry first,
+// then the lower instance id
+__device__ __forceinline__ bool before(float a, int i, float b, int j) {
+  return a < b || (a == b && i < j);
+}
+
+// The ray's first entry after (last_tn, last_id) in (tn, id) order, or
+// (+inf, n) if none is left. col: the ray's entry of instance 0; the
+// entry of instance i is col[i * stride].
+__device__ __forceinline__ void next_entry(const float* __restrict__ col, size_t stride, int n,
+                                           const Group& g, float last_tn, int last_id,
+                                           float& p_tn, int& p_id) {
+  float bt = __int_as_float(0x7f800000);
+  int bi = n;
+  if (last_tn != bt) {  // after a +inf pick every entry left is +inf
+    for (int i = g.lane; i < n; i += GROUP) {
+      const float v = __ldg(col + (size_t)i * stride);
+      if (before(last_tn, last_id, v, i) && before(v, i, bt, bi)) {
+        bt = v;
+        bi = i;
+      }
+    }
+#pragma unroll
+    for (int off = GROUP / 2; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(g.mask(), bt, off, GROUP);
+      const int oi = __shfl_xor_sync(g.mask(), bi, off, GROUP);
+      if (before(ov, oi, bt, bi)) {
+        bt = ov;
+        bi = oi;
+      }
+    }
+  }
+  p_tn = bt;
+  p_id = bi;
+}
+
+// The walk of instance id's sub-BVH by ray r's group (trace() with the
+// offsets of one instance and the ray at lane id * n + r of the local
+// rays), under best_t > 0; returns the tri_local or -1 (ANY: >= 0 on a
+// hit) and leaves the hit's t in best_t.
+template <bool ANY>
+__device__ __forceinline__ int walk_instance(const float* __restrict__ node_rows,
+                                             const float* __restrict__ block_rows,
+                                             const float* __restrict__ o_l,
+                                             const float* __restrict__ d_l,
+                                             const int* __restrict__ noffs,
+                                             const int* __restrict__ toffs, int id, size_t lane,
+                                             int slots, int* stack, const Group& g,
+                                             float& best_t) {
+  const unsigned nbase = (unsigned)__ldg(noffs + id) * ROW;
+  const int toff = __ldg(toffs + id);
+  const Slot root = load_slot(node_rows + nbase, g.lane);
+  const Ray r = load_ray_at(o_l + 3 * lane, d_l + 3 * lane);
+  int steps = 0;
+  return walk<ANY, false>(node_rows, block_rows, nbase, (unsigned)(toff / BS) * BROW, r, slots,
+                          stack, g, root, best_t, steps);
+}
+
+__global__ void __launch_bounds__(THREADS)
+bvh_rounds_closest_kernel(const float* __restrict__ node_rows,
+                          const float* __restrict__ block_rows, const float* __restrict__ o_l,
+                          const float* __restrict__ d_l, const float* __restrict__ tn,
+                          const float* __restrict__ best_t0, const int* __restrict__ noffs,
+                          const int* __restrict__ toffs, int n_inst, int n, int topk, int slots,
+                          float* __restrict__ t_out, int* __restrict__ tri_out,
+                          long long* __restrict__ inst_out) {
+  extern __shared__ int stacks[];
+  const int r = blockIdx.x * RAYS + threadIdx.x / GROUP;
+  if (r >= n) return;
+  const Group g(threadIdx.x);
+  int* stack = stacks + (threadIdx.x / GROUP) * slots;
+  const float* col = tn + r;
+  float t_b = __ldg(best_t0 + r);
+  int tri_b = -1, inst_b = 0;
+  float last_tn = -__int_as_float(0x7f800000);
+  int last_id = -1;
+  float p_tn;
+  int p_id;
+  next_entry(col, n, n_inst, g, last_tn, last_id, p_tn, p_id);
+  while (p_tn < t_b) {
+    // one round: the next topk picks, each under the round-start t_b
+    float t_r = __int_as_float(0x7f800000);
+    int tri_r = -1, inst_r = 0;
+    for (int k = 0; k < topk; ++k) {
+      if (k > 0) next_entry(col, n, n_inst, g, last_tn, last_id, p_tn, p_id);
+      last_tn = p_tn;
+      last_id = p_id;
+      if (!(p_tn < t_b && t_b > 0.0f)) continue;
+      float bt = t_b;
+      const int tri = walk_instance<false>(node_rows, block_rows, o_l, d_l, noffs, toffs, p_id,
+                                           (size_t)p_id * n + r, slots, stack, g, bt);
+      if (tri >= 0 && bt < t_r) {
+        t_r = bt;
+        tri_r = tri;
+        inst_r = p_id;
+      }
+    }
+    if (t_r < t_b) {
+      t_b = t_r;
+      tri_b = tri_r;
+      inst_b = inst_r;
+    }
+    next_entry(col, n, n_inst, g, last_tn, last_id, p_tn, p_id);
+  }
+  if (g.lane == 0) {
+    t_out[r] = t_b;
+    tri_out[r] = tri_b;
+    inst_out[r] = inst_b;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+bvh_rounds_any_kernel(const float* __restrict__ node_rows, const float* __restrict__ block_rows,
+                      const float* __restrict__ o_l, const float* __restrict__ d_l,
+                      const float* __restrict__ tn, const float* __restrict__ tmax,
+                      const uint8_t* __restrict__ occ0, const int* __restrict__ noffs,
+                      const int* __restrict__ toffs, int n_inst, int n, int slots,
+                      uint8_t* __restrict__ occ_out) {
+  extern __shared__ int stacks[];
+  const int r = blockIdx.x * RAYS + threadIdx.x / GROUP;
+  if (r >= n) return;
+  const Group g(threadIdx.x);
+  int* stack = stacks + (threadIdx.x / GROUP) * slots;
+  const float* col = tn + r;
+  const float tm = __ldg(tmax + r);
+  bool occ = __ldg(occ0 + r) != 0;
+  // without an occluder so far, the entries below tmax in (tn, id) order
+  // until one occludes; with tmax <= 0 or NaN no walk can hit
+  if (!occ && tm > 0.0f) {
+    float last_tn = -__int_as_float(0x7f800000);
+    int last_id = -1;
+    while (true) {
+      next_entry(col, n, n_inst, g, last_tn, last_id, last_tn, last_id);
+      if (!(last_tn < tm)) break;
+      float bt = tm;
+      if (walk_instance<true>(node_rows, block_rows, o_l, d_l, noffs, toffs, last_id,
+                              (size_t)last_id * n + r, slots, stack, g, bt) >= 0) {
+        occ = true;
+        break;
+      }
+    }
+  }
+  if (g.lane == 0) occ_out[r] = occ ? 1 : 0;
+}
+
+bool rounds_ok(int n_inst, int topk, int n, int slots, int threads, int rays_per_block, int smem,
+               int grid) {
+  return n_inst >= 1 && topk >= 1 && geometry_ok(n, slots, threads, rays_per_block, smem, grid);
+}
+
 }  // namespace
 
 extern "C" int tinsel_bvh_closest(const float* node_rows, const float* block_rows,
@@ -406,5 +608,32 @@ extern "C" int tinsel_bvh_steps(const float* node_rows, const float* block_rows,
   if (!geometry_ok(n, slots, threads, rays_per_block, smem, grid)) return 9001;
   bvh_steps_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, origins, dirs, noffs,
                                                     toffs, noff0, toff0, n, slots, steps_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tinsel_bvh_rounds_closest(const float* node_rows, const float* block_rows,
+                                         const float* o_l, const float* d_l, const float* tn,
+                                         const float* best_t0, const int* noffs,
+                                         const int* toffs, int n_inst, int n, int topk,
+                                         int slots, int threads, int rays_per_block, int smem,
+                                         int grid, float* t_out, int* tri_out,
+                                         long long* inst_out, cudaStream_t stream) {
+  if (!rounds_ok(n_inst, topk, n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  bvh_rounds_closest_kernel<<<grid, threads, smem, stream>>>(
+      node_rows, block_rows, o_l, d_l, tn, best_t0, noffs, toffs, n_inst, n, topk, slots, t_out,
+      tri_out, inst_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tinsel_bvh_rounds_any(const float* node_rows, const float* block_rows,
+                                     const float* o_l, const float* d_l, const float* tn,
+                                     const float* tmax, const uint8_t* occ0, const int* noffs,
+                                     const int* toffs, int n_inst, int n, int slots, int threads,
+                                     int rays_per_block, int smem, int grid, uint8_t* occ_out,
+                                     cudaStream_t stream) {
+  if (!rounds_ok(n_inst, 1, n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  bvh_rounds_any_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, o_l, d_l, tn,
+                                                         tmax, occ0, noffs, toffs, n_inst, n,
+                                                         slots, occ_out);
   return (int)cudaGetLastError();
 }

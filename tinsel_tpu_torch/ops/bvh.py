@@ -89,15 +89,33 @@ def _entry(kernel: str):
     return fn
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def _check_layout(t: torch.Tensor, name: str, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    _check_layout(t, name, dtype, shape)
+
+
+def _invoke(fn, args, dev, what: str):
+    """Call a kernel's C entry ``fn(*args, stream)`` on ``dev``'s current
+    stream; raise on the error code it returns."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    if err != 0:
+        reason = "arguments rejected by the kernel" if err == 9001 else f"CUDA error {err}"
+        raise RuntimeError(f"{what} kernel launch failed: {reason}")
 
 
 def _offset(x, r: int, dev, name: str):
@@ -140,15 +158,7 @@ def _launch(kernel: str, pool, node_offset, tri_offset, origins, dirs, tmax,
         noff, toff, r, int(stack_slots), geo.threads, geo.rays_per_block,
         geo.smem_bytes, geo.grid, *(o.data_ptr() for o in outs),
     )
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = _entry(kernel)(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = _entry(kernel)(*args, stream)
-    if err != 0:
-        what = "arguments rejected by the kernel" if err == 9001 else f"CUDA error {err}"
-        raise RuntimeError(f"{kernel} kernel launch failed: {what} ({r} lanes)")
+    _invoke(_entry(kernel), args, dev, f"{kernel} ({r} lanes)")
     launch_counts[kernel] += 1
     last_geometry[kernel] = dict(lanes=r, **dataclasses.asdict(geo))
 

@@ -13,7 +13,8 @@ Two searches, each without gradient (the JAX package's ``stop_gradient``):
   its bound. Above ``INSTANCE_TOPK_MIN`` big instances the batch walks
   only the ``INSTANCE_TOPK`` nearest-entry instances per ray per round,
   repeating while some ray's next unvisited box entry still beats its best
-  hit (``_instance_rounds``).
+  hit (``_instance_rounds``): kernels K6c / K6a through
+  ``ops/instances.py``, every round of a call in one launch.
 
 Hits merge in the JAX order (spheres, planes, tiny groups, the big batch)
 with a strict ``<``, so ties keep the earlier primitive. Each search's
@@ -56,13 +57,14 @@ from ..core.math import (
     quat_rotate,
     safe_normalize,
 )
+from ..accel.instances import INSTANCE_TOPK  # noqa: F401 (the JAX module's name)
 from ..accel.traverse import tri_refit
 from ..geometry.intersect import INF
 from ..ops import bvh as ops_bvh
+from ..ops import instances as ops_instances
 from ..ops import sweep as ops_sweep
 from ..scene.model import MESH, PLANE, SPHERE, SceneFlat, _GatherRows
 
-INSTANCE_TOPK = 4  # candidate instances walked per shortlist round
 INSTANCE_TOPK_MIN = 12  # shortlist rounds engage above this instance count
 MESH_VERTEX_GRADS = False  # gradients into the pool's vertex and normal
 # planes (its gathers' backward is a scatter-add, MeshPool); off, every
@@ -155,73 +157,18 @@ def _lane_offsets(off, r):
     return off.repeat_interleave(r)
 
 
-def _shortlist_candidates(work, k: int):
-    """The k nearest-entry instances per ray from the (I, R) entry table
-    ``work`` (visited or missed entries +inf): ((k, R) ids, (k, R) entry
-    distances, ``work`` with the picks set to +inf)."""
-    rows = torch.arange(work.shape[0], device=work.device)[:, None]
-    ids, tns = [], []
-    for _ in range(k):
-        j = torch.argmin(work, dim=0)
-        tns.append(work.gather(0, j[None, :])[0])
-        ids.append(j)
-        work = torch.where(rows == j[None, :], INF, work)
-    return torch.stack(ids), torch.stack(tns), work
-
-
-def _candidate_rays(o_l, d_l, ids):
-    sel = ids[:, :, None].expand(*ids.shape, 3)
-    k, r = ids.shape
-    return o_l.gather(0, sel).reshape(k * r, 3), d_l.gather(0, sel).reshape(k * r, 3)
-
-
 def _instance_rounds(scene, o_l, d_l, tn, best_t0, noff, toff, stack_slots):
     """tn-ordered top-k instance rounds, closest hit (port of
-    ``tinsel_tpu/render/trace.py:267``). o_l/d_l (I, R, 3) local rays, tn
-    (I, R) box entry distances (+inf = culled). Returns (t, tri, inst)."""
-    k = INSTANCE_TOPK
-    r = o_l.shape[1]
-    cand = torch.arange(k, device=o_l.device)[:, None]
-    work, t_b = tn, best_t0
-    tri_b = torch.full((r,), -1, dtype=torch.int32, device=o_l.device)
-    inst_b = torch.zeros((r,), dtype=torch.long, device=o_l.device)
-    while bool((work.min(dim=0).values < t_b).any()):
-        ids, tns, work = _shortlist_candidates(work, k)
-        o_c, d_c = _candidate_rays(o_l, d_l, ids)
-        tm_c = torch.where(tns < t_b[None, :], t_b[None, :], 0.0)
-        t_f, tri_f = ops_bvh.closest_hit(
-            scene.pool, noff[ids].reshape(-1), toff[ids].reshape(-1), o_c, d_c,
-            tm_c.reshape(-1), stack_slots,
-        )
-        t_i, tri_i = t_f.reshape(k, r), tri_f.reshape(k, r)
-        t_min = t_i.min(dim=0).values
-        closer = torch.isfinite(t_min) & (t_min < t_b)
-        ci = torch.where(t_i == t_min[None, :], cand, k).min(dim=0).values
-        oh_k = cand == torch.clamp(ci, max=k - 1)[None, :]
-        inst_w = torch.where(oh_k, ids, 0).sum(dim=0)
-        tri_w = torch.where(oh_k, tri_i, 0).sum(dim=0, dtype=torch.int32)
-        t_b = torch.where(closer, t_min, t_b)
-        tri_b = torch.where(closer, tri_w, tri_b)
-        inst_b = torch.where(closer, inst_w, inst_b)
-    return t_b, tri_b, inst_b
+    ``tinsel_tpu/render/trace.py:267``): kernel K6c on the card, the plain
+    rounds (``accel/instances.py``) on the CPU. Returns (t, tri, inst)."""
+    return ops_instances.rounds_closest(scene, o_l, d_l, tn, best_t0, noff, toff, stack_slots)
 
 
 def _instance_rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots):
-    """The rounds, occlusion form (``tinsel_tpu/render/trace.py:330``).
-    tmax (R,) is 0 where a ray is already occluded. Returns (R,) bool."""
-    k = INSTANCE_TOPK
-    r = o_l.shape[1]
-    work = tn
-    while bool((~occ & (work.min(dim=0).values < tmax)).any()):
-        ids, tns, work = _shortlist_candidates(work, k)
-        o_c, d_c = _candidate_rays(o_l, d_l, ids)
-        tm_c = torch.where(~occ[None, :] & (tns < tmax[None, :]), tmax[None, :], 0.0)
-        oc = ops_bvh.any_hit(
-            scene.pool, noff[ids].reshape(-1), toff[ids].reshape(-1), o_c, d_c,
-            tm_c.reshape(-1), stack_slots,
-        )
-        occ = occ | oc.reshape(k, r).any(dim=0)
-    return occ
+    """The rounds, occlusion form (``tinsel_tpu/render/trace.py:330``):
+    kernel K6a on the card. tmax (R,) is 0 where a ray is already
+    occluded. Returns (R,) bool."""
+    return ops_instances.rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots)
 
 
 def _vertices(pool, gt):
