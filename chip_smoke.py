@@ -47,8 +47,9 @@ Phases, each fatal on failure (exit code 1):
    versions on the card: the 524k-triangle sphere with 65,536 parallel
    rays, envmesh's first diffuse bounce (captured from a render pass on
    the card) and many_mesh's instance batch (per-lane offsets: the first
-   round of the plain shortlist rounds, run on the card on the first
-   rounds call of each form of a render pass, whose own rounds are K6);
+   round of the plain shortlist rounds from the world rays, run on the
+   card on the first rounds call of each form of a render pass, whose own
+   rounds are K6);
    each record names its launch geometry and its share of the bound; the
    seam count (``seam_count``) on the 524k sphere's rays and envmesh's
    camera and first-bounce rays: the lanes where K3 hits under the
@@ -61,7 +62,9 @@ Phases, each fatal on failure (exit code 1):
    K3 (it has no light) and no K6; many_mesh and instances16 (above
    INSTANCE_TOPK_MIN big instances) one K6 launch a rounds call and no
    K3/K4, and every K6 launch of one more pass of each held against the
-   plain rounds on its own inputs, t bit for bit; then one pass of each
+   plain rounds from the same world rays (``accel/instances.py::
+   rounds_closest_world`` / ``rounds_any_world``), t bit for bit; then one
+   pass of each
    under the profiler:
    the walks' (bvh_*: K3, K4, K6) device time inside the pass;
 8. the gradient step (``render_loss_and_grads``) on cornell and envmesh
@@ -86,14 +89,16 @@ Phases, each fatal on failure (exit code 1):
     pass of many_mesh, instances16 and the 81-instance grid
     (``instances_scene(..., grid=9)``) through ``make_render_pass``, its
     ms and its launches (one K6c / K6a launch a rounds call, no K3/K4);
-    every K6 launch of one more pass held against the plain rounds
-    (``accel/instances.py``: torch ops around K3/K4) on its own inputs,
+    every K6 launch of one more pass held against the plain rounds from
+    the same world rays (``accel/instances.py``: the local rays and box
+    entries, then torch ops around K3/K4),
     every lane equal, t bit for bit; on the first call of each form, K6's
     device ms (CUDA-graph replays) and the plain version's ms in turns,
     each one's launches and device ms under the profiler, K6's eager call
-    ms and its bound (``rounds_work``: the entry table, the rays, and the
-    plain rounds' own walks); many_mesh's whole bounce-0 trace_closest
-    call under the profiler;
+    ms and its bound (``rounds_work``: the world rays in and the results
+    out, the instance table, the box tests and the plain rounds' own
+    walks); many_mesh's whole bounce-0 trace_closest and trace_any calls
+    under the profiler, with the memory each allocates at its peak;
 11. scene files: every scene file of the repository that needs no asset
     from outside it, loaded through the port (``load_tin`` /
     ``load_tungsten``, mesh cache cold), flattened on the card and
@@ -298,9 +303,11 @@ def ptxas_summary(log: str):
             args = re.findall(r"Li(\d+)E", m.group(2))
             inst = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"Compiling entry function '\w*?\d((?:bvh|sweep)_[a-z_]+?_kernel)"
-                      r"(?:ILb([01])EE)?E", line)
-        if m:  # a sweep kernel's template argument: its records move
-            inst = m.group(1) + ({"0": "<static>", "1": "<motion>"}.get(m.group(2), ""))
+                      r"(?:ILb([01])EE|ILi(\d+)EE)?E", line)
+        if m:  # a sweep kernel's template argument (its records move) or K6's
+            # (the entries a lane keeps in registers)
+            inst = m.group(1) + ({"0": "<static>", "1": "<motion>"}.get(m.group(2), "")
+                                 + (f"<kept {m.group(3)}>" if m.group(3) else ""))
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -1115,8 +1122,8 @@ def bvh_inputs(dev):
         rounds = capture_calls(((trace, "_instance_rounds"), (trace, "_instance_rounds_any")),
                                lambda: make_render_pass(sc.options)(flat, cam, PathUniforms(9, dev)))
         with CaptureWalks(ops_bvh) as cap:
-            for name, fn in (("_instance_rounds", plain_rounds.rounds_closest),
-                             ("_instance_rounds_any", plain_rounds.rounds_any)):
+            for name, fn in (("_instance_rounds", plain_rounds.rounds_closest_world),
+                             ("_instance_rounds_any", plain_rounds.rounds_any_world)):
                 a, k = rounds[name][0]
                 fn(*a, **k)
     del rounds
@@ -1791,8 +1798,9 @@ def rounds_differ(out, ref) -> tuple:
 def hold_rounds(calls, outs) -> dict:
     """Each K6c / K6a launch (a call of ops/instances.py's dispatchers
     captured with its output by ``capture_calls``) against the plain
-    rounds (accel/instances.py) on the same inputs: every lane equal, t bit
-    for bit. Fails on a mismatch."""
+    rounds from the same world rays (accel/instances.py::
+    rounds_closest_world / rounds_any_world): every lane equal, t bit for
+    bit. Fails on a mismatch."""
     from tinsel_tpu_torch.accel import instances as plain_rounds
 
     rec = {}
@@ -1800,8 +1808,8 @@ def hold_rounds(calls, outs) -> dict:
         rays = mismatched = 0
         err = 0.0
         for (a, k), out in zip(calls.get(name, []), outs.get(name, [])):
-            n, e = rounds_differ(out, getattr(plain_rounds, name)(*a, **k))
-            rays += a[1].shape[1]
+            n, e = rounds_differ(out, getattr(plain_rounds, f"{name}_world")(*a, **k))
+            rays += a[2].shape[0]
             mismatched += n
             err = max(err, e)
         rec[name] = dict(calls=len(calls.get(name, [])), rays=rays, mismatched=mismatched,
@@ -1945,22 +1953,31 @@ def sweep_work(flat, stats, closest: bool, hoist: bool = True):
     return nbytes, ops
 
 
-def rounds_work(inst: int, rays: int, rounds: int, walked: int, stats, closest: bool):
-    """(bytes, f32 operations) of one K6 call, counted on the plain rounds
-    of the same inputs: the (I, R) box-entry table read once, each ray's
-    best t (or tmax and occlusion) in and (t, tri, inst) or the occlusion
-    bit out, the (I,) offsets once, the local ray of each (instance, ray)
-    lane the plain version walks (``walked``, over its ``rounds`` rounds)
-    and each node row and leaf block those walks read, once (``stats``:
-    the plain walks' counts, ``bvh_work``); each of the k picks of a round
-    compares the I entries of every ray, and the walks' slab and triangle
+def rounds_work(args, walked: int, stats, closest: bool):
+    """(bytes, f32 operations) of one K6 call on its arguments ``args``
+    (the dispatcher's: scene, instance table, world rays, times, best t or
+    tmax and occlusion), counted on the plain rounds of the same inputs:
+    each ray's world ray in (its time where the batch moves), its best t
+    (or tmax and occlusion) in and (t, tri, inst) or the occlusion bit
+    out, the instance table once, and each node row and leaf block the
+    plain rounds' walks read, once (``stats``: their counts,
+    ``bvh_work``); each live ray's local ray and root-box test of every
+    instance (INSTANCE_OPS, MOTION_INSTANCE_OPS where the batch moves;
+    a live ray: best t > 0, or not occluded and tmax > 0), one compare of
+    every instance's entry for each pick the rays make (a walked pick and
+    the last one, which ends the ray), and the walks' slab and triangle
     tests."""
-    from tinsel_tpu_torch.accel.instances import INSTANCE_TOPK
-
-    lane = 4 + 16 if closest else 4 + 1 + 1
+    tab, origins = args[1], args[2]
+    rays, inst = origins.shape[0], len(tab.prims)
+    if closest:
+        live = int((args[5] > 0).sum())
+    else:
+        live = int((~args[6] & (args[5] > 0)).sum())
+    lane = 24 + (4 if tab.motion else 0) + (4 + 16 if closest else 4 + 1 + 1)
     (walk_bytes, walk_ops), _ = bvh_work(stats, 0, False, 0)
-    nbytes = 4 * inst * rays + 8 * inst + lane * rays + 24 * walked + walk_bytes
-    return nbytes, rounds * INSTANCE_TOPK * inst * rays + walk_ops
+    nbytes = lane * rays + tab.table.numel() * 4 + walk_bytes
+    box_ops = INSTANCE_OPS + (MOTION_INSTANCE_OPS if tab.motion else 0)
+    return nbytes, live * inst * box_ops + (walked + live) * inst + walk_ops
 
 
 def plain_round_walks(ops_bvh, fn, args, closest: bool):
@@ -2253,10 +2270,10 @@ def k6_call_record(args, kind: str, closest: bool, held: dict) -> dict:
     from tinsel_tpu_torch.ops import instances as ops_instances
 
     kernel = getattr(ops_instances, f"{kind}_cuda")
-    plain_fn = getattr(plain_rounds, kind)
+    plain_fn = getattr(plain_rounds, f"{kind}_world")
     rounds, walked, stats = plain_round_walks(ops_bvh, plain_fn, args, closest)
-    inst, rays = args[1].shape[:2]
-    bound_ms, bound_by = bound(rounds_work(inst, rays, rounds, walked, stats, closest))
+    inst, rays = len(args[1].prims), args[2].shape[0]
+    bound_ms, bound_by = bound(rounds_work(args, walked, stats, closest))
     k6_ms, plain_ms = [], []
     with torch.no_grad():
         for turn in ("plain", "k6", "k6", "plain"):
@@ -2311,12 +2328,13 @@ def trace_ops_phase(dev, per_scene):
     device ms under the profiler and K6's eager call ms; the bound
     (``rounds_work``, from the plain rounds' own walks,
     ``plain_round_walks``). many_mesh also: its whole bounce-0
-    trace_closest call under the profiler. Returns (records by kernel,
-    holds by scene, launches of the timed passes)."""
+    trace_closest and trace_any calls under the profiler, with the memory
+    each allocates at its peak (``whole_trace_calls``). Returns (records
+    by kernel, holds by scene, launches of the timed passes)."""
     from tinsel_tpu_torch.core.sampling import PathUniforms
     from tinsel_tpu_torch.ops import bvh as ops_bvh
     from tinsel_tpu_torch.ops import instances as ops_instances
-    from tinsel_tpu_torch.render import integrator, trace
+    from tinsel_tpu_torch.render import integrator, lights
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_render_pass
 
@@ -2343,7 +2361,7 @@ def trace_ops_phase(dev, per_scene):
             outs = {}
             targets = [(ops_instances, "rounds_closest"), (ops_instances, "rounds_any")]
             if name == "many_mesh":
-                targets.append((integrator, "trace_closest"))
+                targets += [(integrator, "trace_closest"), (lights, "trace_any")]
             calls = capture_calls(targets, lambda: run(flat, cam, src), outs)
         held = held_all[name] = hold_rounds(calls, outs)
         del outs
@@ -2358,13 +2376,10 @@ def trace_ops_phase(dev, per_scene):
         for k in launches:
             launches[k] += counted[k]
         if name == "many_mesh":
-            # the whole closest-hit trace of bounce 0, around the rounds:
-            # the sweep, the instances' local rays and box tests, the refit
-            args, kw = calls["trace_closest"][0]
-            whole = profiled(lambda: trace.trace_closest(*args, **kw))
-            emit(dict(phase="k6", what="many_mesh trace_closest bounce 0 (whole call)",
-                      rays=args[1].shape[0], **whole))
-            del args, kw
+            # the whole trace calls of bounce 0 around the rounds (the
+            # sweep, the refit of the winner)
+            for rec in whole_trace_calls(calls):
+                emit(rec)
         for kind, closest in (("rounds_closest", True), ("rounds_any", False)):
             for i, (args, _) in enumerate(calls[kind]):
                 rec = k6_call_record(args, kind, closest, held[kind])
@@ -2374,6 +2389,40 @@ def trace_ops_phase(dev, per_scene):
                 recs[kind].append(rec)
         del calls
     return recs, held_all, launches
+
+
+def peak_alloc_mib(call) -> float:
+    """MiB of device memory that ``call`` allocates beyond what was
+    allocated before it, at its peak (``max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def whole_trace_calls(calls) -> list:
+    """The first trace_closest and trace_any call of a pass (bounce 0:
+    the camera rays and the first shadow rays), captured by
+    ``capture_calls`` as ``integrator.trace_closest`` / ``lights.trace_any``,
+    each run again whole: its device ms and launches under the profiler
+    (``profiled``; the walks' share, K6 among them, in walk_device_ms) and
+    the memory it allocates at its peak (``peak_alloc_mib``), all under
+    no_grad as a render pass runs them."""
+    from tinsel_tpu_torch.render import trace
+
+    out = []
+    for name in ("trace_closest", "trace_any"):
+        args, kw = calls[name][0]
+        fn = getattr(trace, name)
+        with torch.no_grad():
+            fn(*args, **kw)  # warm: the tables of the scene packed
+            peak = peak_alloc_mib(lambda: fn(*args, **kw))
+        rec = profiled(lambda: fn(*args, **kw))
+        out.append(dict(phase="k6", what=f"many_mesh {name} bounce 0 (whole call)",
+                        rays=args[1].shape[0], peak_alloc_mib=peak, **rec))
+    return out
 
 
 # ------------------------------------------------------------- scene files
@@ -4232,8 +4281,9 @@ def main():
     # rays, 48 meshes); the error is the worst over every launch held
     for key, replaces in (
         ("rounds_closest", "tinsel_tpu/render/trace.py:267 _instance_rounds "
-                           "(_shortlist_candidates :251)"),
-        ("rounds_any", "tinsel_tpu/render/trace.py:330 _instance_rounds_any"),
+                           "(_shortlist_candidates :251, _instance_box_entry :216)"),
+        ("rounds_any", "tinsel_tpu/render/trace.py:330 _instance_rounds_any "
+                       "(_instance_box_entry :216)"),
     ):
         rec = next(r for r in k6[key] if r["shape"].startswith("many_mesh"))
         errs = ([r["max_abs_err"] for r in k6[key]]

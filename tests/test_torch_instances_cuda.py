@@ -1,25 +1,34 @@
 """The instance shortlist rounds as kernels K6c (closest hit) and K6a
 (occlusion), csrc/bvh.cu, against their plain PyTorch version
-(accel/instances.py: torch ops around kernels K3 / K4) on the card. Every
-test needs an NVIDIA GPU and skips without one.
+(accel/instances.py::rounds_closest_world / rounds_any_world: the world
+rays taken into every instance's frame by torch ops, then torch ops
+around kernels K3 / K4) on the card. Every test needs an NVIDIA GPU and
+skips without one.
 
 This file imports neither JAX nor tinsel_tpu, so it runs where JAX is not
 installed, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_instances_cuda.py
 
-Tolerance: none. K6 walks with K3 / K4's code under -fmad=false and
-mirrors the plain round (the picks in (entry, id) order, every pick under
-the round-start best t, the first of the least t), so t, the triangle,
-the instance and the occlusion bit are equal on every lane, t bit for
-bit. The cases: instances16, many_mesh (48 meshes, 32 big), the
-81-instance grid and a line of 21 sphere instances whose boxes a ray can
-cross without a hit (ceil(21 / 4) rounds, two instances with equal box
-entries and equal hits); rays from inside the boxes and along their
-faces; best t finite, +inf and 0; rays already occluded; 0, 1, 17 and
-4,099 rays. Through trace_closest / trace_any each call is one launch and
-no K3 / K4 launch. The wrappers refuse bad arguments.
+Tolerance: none. K6 takes each ray into each instance's frame and tests
+its root box with the plain version's component formulas and walks with
+K3 / K4's code, all under -fmad=false, and mirrors the plain round (the
+picks in (entry, id) order, every pick under the round-start best t, the
+first of the least t), so t, the triangle, the instance and the occlusion
+bit are equal on every lane, t bit for bit. The cases: instances16,
+many_mesh (48 meshes, 32 big), the 81-instance grid, a line of 21 sphere
+instances whose boxes a ray can cross without a hit (ceil(21 / 4) rounds,
+two instances with equal box entries and equal hits), 144 turned and
+scaled capsules (above the 128 instances whose entries a lane keeps in
+registers) and 40 of which a third move, the hoist on and off; rays from
+inside the boxes and along their faces; best t finite, +inf and 0; rays
+already occluded; 0, 1, 17 and 4,099 rays. Through trace_closest /
+trace_any each call is one launch and no K3 / K4 launch. The wrappers
+refuse bad arguments. A many_mesh call allocates less than one (I, R)
+f32 table.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -57,14 +66,42 @@ def sphere_line(model, procedural):
     return sc
 
 
-def rays(flat, big, n, seed, line=False):
+def turned_capsules(model, procedural, n, moving=False, seed=0):
+    """n instances of one 576-triangle capsule on a grid over [-5, 5] in x
+    and z, each turned by a random rotation (a unit quaternion) and scaled
+    by 0.6 to 1.4; with ``moving``, every third one ends elsewhere, turned
+    and scaled again (the whole batch then interpolates at the ray's
+    time)."""
+    rng = np.random.default_rng(seed)
+    sc = model.Scene()
+    m = procedural.capsule(radius=0.3, half_height=0.25, slices=12, segments=24)
+    m.build()
+    side = int(np.ceil(np.sqrt(n)))
+
+    def turned(p):
+        q = rng.normal(size=4)
+        return model.HostTransform(p=p.astype(np.float32),
+                                   q=(q / np.linalg.norm(q)).astype(np.float32),
+                                   s=float(rng.uniform(0.6, 1.4)))
+
+    for i in range(n):
+        p = np.array([-5 + 10 * (i % side + 0.5) / side, rng.uniform(0.5, 2.5),
+                      -5 + 10 * (i // side + 0.5) / side])
+        end = turned(p + rng.normal(size=3) * 0.3) if moving and i % 3 == 0 else None
+        sc.add_primitive(model.Primitive(type=model.MESH, mesh=m, start_transform=turned(p),
+                                         end_transform=end))
+    return sc
+
+
+def rays(flat, big, n, seed, line=False, moving=False):
     """n rays from above the floor: a third aimed at a random big
     primitive's centre, a third nearly level across the field at the
     height of the primitives' tops (through many instance boxes, missing
     most primitives in them: several rounds; with ``line``, along the line
     of spheres through the corners of their boxes), a third in random
     directions; best t (and tmax) +inf, finite or 0, and a fifth of the
-    rays already occluded. Numpy (o, d, times, best t, occluded)."""
+    rays already occluded; times 0, or in [0, 1) with ``moving``. Numpy
+    (o, d, times, best t, occluded)."""
     rng = np.random.default_rng(seed)
     p = flat.prims.start_p.cpu().numpy()[np.asarray(big)]
     o = np.stack([rng.uniform(-6, 6, n), rng.uniform(0.05, 4, n), rng.uniform(-6, 9, n)], -1)
@@ -91,7 +128,8 @@ def rays(flat, big, n, seed, line=False):
     u = rng.random(n)
     best = np.where(u < 0.45, np.inf, np.where(u < 0.95, rng.uniform(0.5, 12, n), 0.0))
     occ0 = rng.random(n) < 0.2
-    return (o.astype(np.float32), d.astype(np.float32), np.zeros(n, np.float32),
+    times = rng.random(n) if moving else np.zeros(n)
+    return (o.astype(np.float32), d.astype(np.float32), times.astype(np.float32),
             best.astype(np.float32), occ0)
 
 
@@ -100,6 +138,8 @@ SCENES = {
     "many_mesh": lambda: presets.many_mesh_scene(48, 32, 32, 2),
     "grid81": lambda: presets.instances_scene(32, 32, 3, grid=9),
     "line21": lambda: sphere_line(model, procedural),
+    "turned144": lambda: turned_capsules(model, procedural, 144, seed=1),
+    "moving40": lambda: turned_capsules(model, procedural, 40, moving=True, seed=2),
 }
 _FLATS = {}
 
@@ -110,20 +150,17 @@ def _flat(name, dev):
     return _FLATS[name]
 
 
-def inputs(flat, o, d, times, best, occ0):
-    """The rounds' arguments as trace_closest / trace_any build them, with
-    the port's own functions: (closest args, any args)."""
-    dev = o.device
-    big = list(layout(flat.prim_static).big)
-    handles = [flat.prim_static[i].mesh for i in big]
-    n, r = len(big), o.shape[0]
-    _, o_l, d_l = trace._local_rays(flat, big, o, d, times)
-    noff, toff, slots = trace._offsets(handles, dev)
+def inputs(flat, o, d, times, best, occ0, hoist=True):
+    """The rounds' arguments as trace_closest / trace_any build them:
+    (closest args, any args)."""
+    tab = ops.table(flat, o.device, hoist)
     tmax = torch.where(occ0, 0.0, best)
-    tn_c = trace._instance_box_entry(handles, o_l, d_l, best[None].expand(n, r))[1]
-    tn_a = trace._instance_box_entry(handles, o_l, d_l, tmax[None].expand(n, r))[1]
-    return ((flat, o_l, d_l, tn_c, best, noff, toff, slots),
-            (flat, o_l, d_l, tn_a, tmax, occ0, noff, toff, slots))
+    return (flat, tab, o, d, times, best), (flat, tab, o, d, times, tmax, occ0)
+
+
+def _case_rays(name, flat, lanes, seed):
+    big = list(layout(flat.prim_static).big)
+    return rays(flat, big, lanes, seed, line=name == "line21", moving=name == "moving40")
 
 
 def _assert_equal_plain(closest_args, any_args):
@@ -136,10 +173,10 @@ def _assert_equal_plain(closest_args, any_args):
     torch.cuda.synchronize()
     assert ops.launch_counts == {"rounds_closest": 1, "rounds_any": 1}
     assert ops_bvh.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
-    want = plain.rounds_closest(*closest_args)
+    want = plain.rounds_closest_world(*closest_args)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert torch.equal(occ, plain.rounds_any(*any_args))
+    assert torch.equal(occ, plain.rounds_any_world(*any_args))
     return got, occ
 
 
@@ -148,16 +185,32 @@ def _assert_equal_plain(closest_args, any_args):
 @pytest.mark.parametrize("name", list(SCENES))
 def test_kernels_equal_plain(cuda, name, lanes):
     flat = _flat(name, cuda)
-    big = list(layout(flat.prim_static).big)
-    arrays = rays(flat, big, lanes, lanes, line=name == "line21")
-    args = inputs(flat, *(torch.from_numpy(a).to(cuda) for a in arrays))
+    args = inputs(flat, *(torch.from_numpy(a).to(cuda) for a in _case_rays(name, flat, lanes,
+                                                                            lanes)))
     (t, tri, inst), occ = _assert_equal_plain(*args)
     if lanes == 4099:
         assert 0.1 < float((tri >= 0).float().mean()) < 0.9
-        assert bool(occ[args[1][5]].all())  # already occluded stays so
+        assert bool(occ[args[1][6]].all())  # already occluded stays so
     if name == "line21" and lanes == 4099:
         # rays through every box without a hit: ceil(21 / 4) rounds
-        assert int(torch.isfinite(args[0][3]).sum(0).max()) == LINE
+        tn = plain.world_inputs(*args[0])[2]
+        assert int(torch.isfinite(tn).sum(0).max()) == LINE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["instances16", "many_mesh", "moving40", "turned144"])
+def test_kernels_equal_plain_with_the_hoist_off(cuda, name):
+    """STATIC_TRANSFORM_HOIST off: every instance takes its transform at
+    the ray's time (the nlerp of a static rotation may move it by an ulp),
+    from the table packed for that setting."""
+    flat = _flat(name, cuda)
+    o, d, _, best, occ0 = _case_rays(name, flat, 4099, 5)
+    times = np.random.default_rng(6).random(len(o)).astype(np.float32)
+    args = inputs(flat, *(torch.from_numpy(a).to(cuda) for a in (o, d, times, best, occ0)),
+                  hoist=False)
+    assert args[0][1].motion
+    assert ops.table(flat, cuda, True).motion == (name == "moving40")
+    _assert_equal_plain(*args)
 
 
 @pytest.mark.cuda
@@ -174,7 +227,7 @@ def test_equal_entries_and_equal_hits_take_the_lower_instance(cuda):
     args = inputs(flat, *(torch.from_numpy(a.astype(np.float32)).to(cuda)
                           for a in (o, d, np.zeros(n), best)),
                   torch.zeros(n, dtype=torch.bool, device=cuda))
-    tn = args[0][3]
+    tn = plain.world_inputs(*args[0])[2]
     assert torch.equal(tn[3], tn[LINE - 1]) and bool(torch.isfinite(tn[3]).all())
     (t, tri, inst), occ = _assert_equal_plain(*args)
     assert bool((tri >= 0).all()) and bool((inst == 3).all()) and bool(occ.all())
@@ -250,8 +303,8 @@ def test_one_launch_a_trace_call(cuda, name, monkeypatch):
     torch.cuda.synchronize()
     assert ops.launch_counts == {"rounds_closest": 1, "rounds_any": 1}
     assert ops_bvh.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
-    monkeypatch.setattr(ops, "rounds_closest", plain.rounds_closest)
-    monkeypatch.setattr(ops, "rounds_any", plain.rounds_any)
+    monkeypatch.setattr(ops, "rounds_closest", plain.rounds_closest_world)
+    monkeypatch.setattr(ops, "rounds_any", plain.rounds_any_world)
     ref = trace.trace_closest(flat, o, d, times)
     assert torch.equal(hit.t, ref.t) and torch.equal(hit.prim, ref.prim)
     assert torch.equal(hit.normal, ref.normal)
@@ -259,26 +312,48 @@ def test_one_launch_a_trace_call(cuda, name, monkeypatch):
     assert 0.05 < float((hit.prim >= 0).float().mean()) < 0.95
 
 
+@pytest.mark.cuda
+def test_a_many_mesh_call_allocates_less_than_one_instance_ray_table(cuda):
+    """K6c / K6a on many_mesh's 32 big instances and 2^18 rays: the peak
+    allocation of each call above what was allocated before it stays below
+    one (I, R) f32 table (the kernels allocate their outputs only)."""
+    flat = _flat("many_mesh", cuda)
+    n = 1 << 18
+    args = inputs(flat, *(torch.from_numpy(a).to(cuda) for a in _case_rays("many_mesh", flat,
+                                                                            n, 8)))
+    n_inst = len(args[0][1].prims)
+    assert n_inst == 32
+    for fn, a in ((ops.rounds_closest, args[0]), (ops.rounds_any, args[1])):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < 4 * n_inst * n
+        del out
+
+
 def _bad(args, what, dev):
     a = list(args)
-    if what == "o_l dtype":
-        a[1] = a[1].double()
-    elif what == "tn shape":
-        a[3] = a[3][:-1]
-    elif what == "d_l transposed":
-        a[2] = a[2].transpose(0, 1).contiguous().transpose(0, 1)
-    elif what == "noff dtype":
-        a[-3] = a[-3].long()
-    elif what == "toff on the CPU":
-        a[-2] = a[-2].cpu()
+    tab = a[1]
+    if what == "origins dtype":
+        a[2] = a[2].double()
+    elif what == "times shape":
+        a[4] = a[4][:-1]
+    elif what == "dirs transposed":
+        a[3] = a[3].t().contiguous().t()
+    elif what == "table dtype":
+        a[1] = dataclasses.replace(tab, table=tab.table.double())
+    elif what == "best on the CPU":
+        a[5] = a[5].cpu()
     elif what == "stack slots":
-        a[-1] = 200
+        a[1] = dataclasses.replace(tab, slots=200)
     return a
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what", ["o_l dtype", "tn shape", "d_l transposed", "noff dtype",
-                                  "toff on the CPU", "stack slots"])
+@pytest.mark.parametrize("what", ["origins dtype", "times shape", "dirs transposed",
+                                  "table dtype", "best on the CPU", "stack slots"])
 def test_wrappers_refuse_bad_arguments(cuda, what):
     flat = _flat("instances16", cuda)
     big = list(layout(flat.prim_static).big)

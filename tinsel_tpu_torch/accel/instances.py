@@ -7,9 +7,13 @@ _instance_rounds_any``).
 Above ``render/trace.py::INSTANCE_TOPK_MIN`` big instances, a trace call
 walks, per ray and round, only the ``INSTANCE_TOPK`` instances with the
 nearest unvisited root-box entries, and repeats while some ray's next
-unvisited entry still beats its best hit. Each round's walks go through
-``ops/bvh.py`` (K3 / K4 on the card, the plain walks on the CPU), with
-one host sync a round for the loop's test.
+unvisited entry still beats its best hit. ``rounds_closest`` /
+``rounds_any`` define a round over given (I, R) local rays and entries;
+``rounds_closest_world`` / ``rounds_any_world`` build those from the world
+rays with the kernels' component formulas (``world_inputs``) and call
+them. Each round's walks go through ``ops/bvh.py`` (K3 / K4 on the card,
+the plain walks on the CPU), with one host sync a round for the loop's
+test.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from ..geometry.intersect import INF
 from ..ops import bvh as ops_bvh
+from .sweep import box_entry, lerp_transform, local_ray
 
 INSTANCE_TOPK = 4  # candidate instances walked per shortlist round
 
@@ -89,3 +94,44 @@ def rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots):
         )
         occ = occ | oc.reshape(k, r).any(dim=0)
     return occ
+
+
+def world_inputs(scene, tab, origins, dirs, times, tmax):
+    """The rounds' per-(instance, ray) inputs from world rays, with the
+    formulas kernels K5 and K6 hold bit for bit (``accel/sweep.py``): each
+    instance's transform at the ray's time where ``tab.motion``, else its
+    start transform; the ray in its frame; its root-box entry, +inf where
+    the box is missed or entered at or beyond tmax (R,). ``tab``: the
+    batch's ``ops/instances.py::InstanceTable`` (its primitives, motion
+    rule and root boxes); the transforms come from the scene. Returns the
+    (I, R, 3) local origins and directions and the (I, R) entries."""
+    pr = scene.prims
+
+    def rows(x):  # (I, 1) columns of primitive rows
+        x = x.detach()[tab.prim_ids]
+        return tuple(x[:, k:k + 1] for k in range(x.shape[1])) if x.dim() == 2 else x[:, None]
+
+    p, q, s = rows(pr.start_p), rows(pr.start_q), rows(pr.start_s)
+    if tab.motion:
+        p, q, s = lerp_transform(p, q, s, rows(pr.end_p), rows(pr.end_q), rows(pr.end_s),
+                                 times[None, :])
+    o_l, d_l = local_ray(p, q, s, tuple(c[None, :] for c in origins.unbind(-1)),
+                         tuple(c[None, :] for c in dirs.unbind(-1)))
+    lo, hi = tab.lower.unbind(-1), tab.upper.unbind(-1)
+    may, tn = box_entry(tuple(c[:, None] for c in lo), tuple(c[:, None] for c in hi), o_l, d_l,
+                        tmax[None, :])
+    return torch.stack(o_l, -1), torch.stack(d_l, -1), torch.where(may, tn, INF)
+
+
+def rounds_closest_world(scene, tab, origins, dirs, times, best_t0):
+    """``rounds_closest`` on world rays (R, 3), times and best_t0 (R,):
+    the plain version of kernel K6c. Returns (t, tri, inst)."""
+    o_l, d_l, tn = world_inputs(scene, tab, origins, dirs, times, best_t0)
+    return rounds_closest(scene, o_l, d_l, tn, best_t0, tab.noff, tab.toff, tab.slots)
+
+
+def rounds_any_world(scene, tab, origins, dirs, times, tmax, occ):
+    """``rounds_any`` on world rays: the plain version of kernel K6a. tmax
+    (R,) is 0 where a ray is already occluded. Returns (R,) bool."""
+    o_l, d_l, tn = world_inputs(scene, tab, origins, dirs, times, tmax)
+    return rounds_any(scene, o_l, d_l, tn, tmax, occ, tab.noff, tab.toff, tab.slots)

@@ -7,9 +7,10 @@
 // _run_tiled :635 / _traverse_tile :491 / _step :390), :903
 // intersect_mesh_any (_traverse_tile_any :811), :963 traversal_cost
 // (_run_tiled with with_steps=True), and tinsel_tpu/render/trace.py:267
-// _instance_rounds / :330 _instance_rounds_any. In the JAX package these
-// are pure JAX lockstep loops over tiles of rays (the rounds a
-// jax.lax.while_loop around them).
+// _instance_rounds / :330 _instance_rounds_any with the inputs built for
+// them (:216 _instance_box_entry, the local rays of :434-436). In the JAX
+// package these are pure JAX lockstep loops over tiles of rays (the
+// rounds a jax.lax.while_loop around them).
 //
 // Layout (accel/build.py, built on the host):
 //   node row (72 floats, 288 B): cols [0,16) x, [16,32) y, [32,48) z child
@@ -98,6 +99,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frame.cuh"  // nmin / nmax, rcp_nudged, an instance's frame and its root-box test
+
 namespace {
 
 constexpr int K = 16;          // node fan-out
@@ -130,24 +133,6 @@ struct Group {
     return __shfl_sync(mask(), v, src, GROUP);
   }
 };
-
-// torch.minimum / torch.maximum: NaN if either operand is NaN
-__device__ __forceinline__ float nmin(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float safe_rcp(float d) {
-  const float eps = 1e-30f;
-  float x = fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d;
-  return 1.0f / x;
-}
 
 // slab test of one child box: returns tn <= tf, and tn
 __device__ __forceinline__ bool slab(uint32_t bx, uint32_t by, uint32_t bz, const Ray& r,
@@ -192,7 +177,7 @@ __device__ __forceinline__ Ray load_ray_at(const float* o, const float* d) {
   Ray r;
   r.ox = __ldg(o); r.oy = __ldg(o + 1); r.oz = __ldg(o + 2);
   r.dx = __ldg(d); r.dy = __ldg(d + 1); r.dz = __ldg(d + 2);
-  r.rx = safe_rcp(r.dx); r.ry = safe_rcp(r.dy); r.rz = safe_rcp(r.dz);
+  r.rx = rcp_nudged(r.dx); r.ry = rcp_nudged(r.dy); r.rz = rcp_nudged(r.dz);
   return r;
 }
 
@@ -383,46 +368,80 @@ bool geometry_ok(int n, int slots, int threads, int rays_per_block, int smem, in
 
 // ---------------------------------------------------------------- K6
 //
-// K6c / K6a: every round of one call of the instance shortlist rounds
-// (plain version: tinsel_tpu_torch/accel/instances.py, which follows
-// tinsel_tpu/render/trace.py:267 _instance_rounds and :330
-// _instance_rounds_any) in one launch. A round takes, per ray, the k
-// nearest unvisited entries of the ray's column of the (I, R) box-entry
-// table tn (argmin's tie rule: the lower instance id), walks each pick
-// whose entry is below the best t at the round's start under that t, and
-// only then takes the closest of the k results (strict <, the lowest pick
-// on a tie); rounds repeat while an unvisited entry is below the best t.
-// The occlusion form ORs the walks' bits under a fixed tmax.
+// K6c / K6a: every round of one call of the instance shortlist rounds in
+// one launch, from the world rays (plain version:
+// tinsel_tpu_torch/accel/instances.py::rounds_closest_world /
+// rounds_any_world; the JAX package's tinsel_tpu/render/trace.py:267
+// _instance_rounds and :330 _instance_rounds_any, with :251
+// _shortlist_candidates, :216 _instance_box_entry and the local rays of
+// :434-436). A round takes, per ray, the k nearest unvisited root-box
+// entries of the big instances (argmin's tie rule: the lower instance
+// id), walks each pick whose entry is below the best t at the round's
+// start under that t, and only then takes the closest of the k results
+// (strict <, the lowest pick on a tie); rounds repeat while an unvisited
+// entry is below the best t. The occlusion form ORs the walks' bits
+// under a fixed tmax.
 //
-// What bounds it on this card: the walks, as K3's (a chain of dependent
-// row loads), plus the shortlist's scans of the ray's tn column, which
-// stay in L1/L2 after the first round.
+// What bounds it on this card: per ray the function needs its world ray
+// in and its result out, the instance table once, each instance's local
+// ray and root-box test (some 115 f32 operations, 150 where the batch
+// moves: I of them a ray), then the walks, which as K3's are chains of
+// dependent row loads bounded by their latency. At many_mesh's 32
+// instances and 1M rays the box tests alone are some 3.7e9 operations,
+// more time at the card's f32 rate than the rays' bytes take.
 //
-// The design: one 16-lane group per ray, as K3, with K3's launch geometry
-// and shared-memory stacks, and the same walk().
-//   * No visited table: the plain rounds visit the entries in (tn, id)
-//     order, so the visited ones are exactly those at or before the last
-//     pick in that order, and the next pick is the least entry after it.
-//     Lane j scans entries j, j + 16, ... of the column (entry (i, r) at
-//     i * R + r, so neighbouring groups read neighbouring floats of a
-//     row), a shuffle reduction takes the least (tn, id). Nothing is
-//     written, and neither I nor R is capped.
+// The design: one 16-lane group per ray, with K3's launch geometry,
+// shared-memory stacks and walk().
+//   * The entries in the kernel. Lane j owns instances j, j + 16, ...: it
+//     takes the world ray into each one's frame and tests its root box
+//     with frame.cuh's functions, the entry +inf where the box is missed
+//     or entered at or beyond the ray's best t (K6a: its tmax). Nothing
+//     per (instance, ray) pair goes to device memory.
+//   * The entries stay on the chip: KEPT of them a lane in registers,
+//     the least of 1, 2, 4, 8 that covers I (a template argument, so the
+//     array stays in registers; ops/instances.py::kept_entries picks
+//     it). Above 128 instances (KEPT = 0) a lane computes its entries
+//     again from the records at each scan: the same bits, no cap on I.
+//   * The records (96 B an instance, ops/instances.py::pack_instances)
+//     are read through L1 (__ldg), not staged in shared memory: the table
+//     is the same for every block and small (3 KB for many_mesh's 32
+//     instances, 7.6 KB for the 81 grid), so after the first blocks it is
+//     in L1 and L2; a lane reads its own records once a ray, and a walk's
+//     record is one address for the 16 lanes. Staged in shared memory
+//     once a block instead (a barrier before the first box test, I * 96 B
+//     in every block), both kernels ran 3.9-5.4 % slower on the bounce-0
+//     calls of many_mesh, instances16 and the 81 grid (H100 80GB HBM3,
+//     700 W, in turns; PERF.md).
+//   * The next pick: each lane takes the least (entry, id) after the last
+//     pick among its own entries, then a butterfly of 4 shuffles the
+//     least over the group. The plain rounds visit the entries in (entry,
+//     id) order, so the visited ones are those at or before the last
+//     pick: no visited table. After the box tests the picks read nothing
+//     from device memory.
 //   * A pick at +inf is never walked (inf < t is false), so the plain
 //     version's re-picks of +inf entries once a column is used up change
-//     nothing.
+//     nothing; a round ends at its first pick that is not below its
+//     round-start best t (no later pick is).
+//   * The walk: every lane takes the world ray into the pick's frame from
+//     its record again (the group runs one instruction stream, so this
+//     costs what the owner alone would, and needs no shuffle) and walks
+//     it with walk().
 //   * Per-ray exit: a group leaves when its next entry is not below its
 //     best t (K6a: when it is occluded, or its next entry is not below
 //     tmax). The plain version loops while any ray passes that test, but
 //     a ray that fails it only gets picks walked under tmax 0 (no walk),
 //     and it keeps failing: entries only grow and best t only shrinks.
-//   * Every pick of a round is walked under the round-start best t,
-//     never a t tightened by an earlier pick of the same round: the plain
-//     version gives every pick the same tmax, and a triangle can lie a
-//     rounding below its instance's box entry.
+//   * Every pick of a round is walked under the round-start best t, never
+//     a t tightened by an earlier pick of the same round: the plain
+//     version gives every pick the same tmax, and a triangle's t can lie a
+//     rounding below the slab entry of a node that holds it, so a tighter
+//     bound can cull the winner's node.
 //   * K6a stops at the first pick that occludes (the OR is then set).
-//   * Local rays are read at (id * R + r) * 3 and tn at id * R + r in
-//     64-bit arithmetic (48 instances of 2^20 rays are 1.5 * 2^27 floats;
-//     a few hundred instances of 4M rays pass 2^32).
+//   * A ray whose best t (K6c) or tmax (K6a) is <= 0 or NaN has no entry
+//     below it, and an occluded ray no walk: neither loads its world ray.
+
+constexpr int REC = 6;       // float4s of an instance record
+constexpr int MAX_KEPT = 8;  // entries a lane keeps in registers at most
 
 // (a, i) comes before (b, j) in the shortlist's order: the entry first,
 // then the lower instance id
@@ -430,103 +449,184 @@ __device__ __forceinline__ bool before(float a, int i, float b, int j) {
   return a < b || (a == b && i < j);
 }
 
-// The ray's first entry after (last_tn, last_id) in (tn, id) order, or
-// (+inf, n) if none is left. col: the ray's entry of instance 0; the
-// entry of instance i is col[i * stride].
-__device__ __forceinline__ void next_entry(const float* __restrict__ col, size_t stride, int n,
-                                           const Group& g, float last_tn, int last_id,
-                                           float& p_tn, int& p_id) {
-  float bt = __int_as_float(0x7f800000);
-  int bi = n;
-  if (last_tn != bt) {  // after a +inf pick every entry left is +inf
-    for (int i = g.lane; i < n; i += GROUP) {
-      const float v = __ldg(col + (size_t)i * stride);
-      if (before(last_tn, last_id, v, i) && before(v, i, bt, bi)) {
-        bt = v;
-        bi = i;
-      }
-    }
-#pragma unroll
-    for (int off = GROUP / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(g.mask(), bt, off, GROUP);
-      const int oi = __shfl_xor_sync(g.mask(), bi, off, GROUP);
-      if (before(ov, oi, bt, bi)) {
-        bt = ov;
-        bi = oi;
-      }
-    }
-  }
-  p_tn = bt;
-  p_id = bi;
+// A world ray and its time (0 where the batch does not move: times NULL)
+struct World {
+  V3 o, d;
+  float time;
+};
+
+__device__ __forceinline__ World load_world(const float* __restrict__ origins,
+                                            const float* __restrict__ dirs,
+                                            const float* __restrict__ times, int r) {
+  const float* o = origins + 3 * (size_t)r;
+  const float* d = dirs + 3 * (size_t)r;
+  return {{__ldg(o), __ldg(o + 1), __ldg(o + 2)},
+          {__ldg(d), __ldg(d + 1), __ldg(d + 2)},
+          times ? __ldg(times + r) : 0.0f};
 }
 
-// The walk of instance id's sub-BVH by ray r's group (trace() with the
-// offsets of one instance and the ray at lane id * n + r of the local
-// rays), under best_t > 0; returns the tri_local or -1 (ANY: >= 0 on a
-// hit) and leaves the hit's t in best_t.
+// An instance's record (ops/instances.py::pack_instances): a = (start p,
+// start s), q = start q, b = (end p, end s) - a, dq = end q - q (both
+// differences taken on the host in f32), (root lower, node offset),
+// (root upper, triangle offset), the offsets as int bits
+__device__ __forceinline__ const float4* record(const float4* __restrict__ tab, int id) {
+  return tab + (size_t)id * REC;
+}
+
+// The world ray in the record's frame (accel/sweep.py::local_ray): the
+// transform at the ray's time where the batch moves, else the start one
+__device__ __forceinline__ void to_local(const float4* rec, bool motion, const World& w, V3& o,
+                                         V3& d) {
+  const float4 a = __ldg(rec), q = __ldg(rec + 1);
+  if (motion) {
+    const Frame f = moving_frame(a, q, __ldg(rec + 2), __ldg(rec + 3), w.time);
+    o = inverse_rotate(f.u, f.qw, sub(w.o, f.p), f.s, true);
+    d = inverse_rotate(f.u, f.qw, w.d, f.s, true);
+  } else {
+    const V3 u = {-q.x, -q.y, -q.z};
+    o = inverse_rotate(u, q.w, sub(w.o, xyz(a)), a.w, true);
+    d = inverse_rotate(u, q.w, w.d, a.w, true);
+  }
+}
+
+// Instance id's root-box entry for the world ray: +inf where the box is
+// missed or entered at or beyond tmax
+__device__ __forceinline__ float entry_of(const float4* __restrict__ tab, int id, bool motion,
+                                          const World& w, float tmax) {
+  const float4* rec = record(tab, id);
+  V3 o, d;
+  to_local(rec, motion, w, o, d);
+  float tn;
+  return box_entry(__ldg(rec + 4), __ldg(rec + 5), o, d, tmax, tn) ? tn : inf();
+}
+
+// The entries of one lane's instances, e[k] for instance lane + 16 k
+// (+inf past the last); KEPT == 0 keeps none
+template <int KEPT>
+struct Entries {
+  float e[KEPT > 0 ? KEPT : 1];
+  const float4* tab;
+  int n;
+  bool motion;
+  float tmax;
+
+  __device__ __forceinline__ Entries(const float4* t, int n_inst, bool m, const World& w,
+                                     float tm, int lane)
+      : tab(t), n(n_inst), motion(m), tmax(tm) {
+#pragma unroll
+    for (int k = 0; k < KEPT; ++k) {
+      const int i = lane + GROUP * k;
+      e[k] = i < n ? entry_of(tab, i, motion, w, tmax) : inf();
+    }
+  }
+
+  // The ray's first entry after (p_tn, p_id) in (entry, id) order, or
+  // (+inf, n) if none is left, into (p_tn, p_id)
+  __device__ __forceinline__ void next(const World& w, const Group& g, float& p_tn,
+                                       int& p_id) const {
+    float bt = inf();
+    int bi = n;
+    if (p_tn != bt) {  // after a +inf pick every entry left is +inf
+      if constexpr (KEPT > 0) {
+#pragma unroll
+        for (int k = 0; k < KEPT; ++k) {
+          const int i = g.lane + GROUP * k;
+          if (before(p_tn, p_id, e[k], i) && before(e[k], i, bt, bi)) {
+            bt = e[k];
+            bi = i;
+          }
+        }
+      } else {
+        for (int i = g.lane; i < n; i += GROUP) {
+          const float v = entry_of(tab, i, motion, w, tmax);
+          if (before(p_tn, p_id, v, i) && before(v, i, bt, bi)) {
+            bt = v;
+            bi = i;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = GROUP / 2; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(g.mask(), bt, off, GROUP);
+        const int oi = __shfl_xor_sync(g.mask(), bi, off, GROUP);
+        if (before(ov, oi, bt, bi)) {
+          bt = ov;
+          bi = oi;
+        }
+      }
+    }
+    p_tn = bt;
+    p_id = bi;
+  }
+};
+
+// The walk of instance id's sub-BVH by the ray's group under best_t > 0
+// (trace() with the instance's offsets and the world ray in its frame);
+// returns the tri_local or -1 (ANY: >= 0 on a hit) and leaves the hit's t
+// in best_t
 template <bool ANY>
 __device__ __forceinline__ int walk_instance(const float* __restrict__ node_rows,
                                              const float* __restrict__ block_rows,
-                                             const float* __restrict__ o_l,
-                                             const float* __restrict__ d_l,
-                                             const int* __restrict__ noffs,
-                                             const int* __restrict__ toffs, int id, size_t lane,
-                                             int slots, int* stack, const Group& g,
-                                             float& best_t) {
-  const unsigned nbase = (unsigned)__ldg(noffs + id) * ROW;
-  const int toff = __ldg(toffs + id);
+                                             const float4* __restrict__ tab, int id, bool motion,
+                                             const World& w, int slots, int* stack,
+                                             const Group& g, float& best_t) {
+  const float4* rec = record(tab, id);
+  const unsigned nbase = (unsigned)__float_as_int(__ldg(&rec[4].w)) * ROW;
+  const int toff = __float_as_int(__ldg(&rec[5].w));
   const Slot root = load_slot(node_rows + nbase, g.lane);
-  const Ray r = load_ray_at(o_l + 3 * lane, d_l + 3 * lane);
+  V3 o, d;
+  to_local(rec, motion, w, o, d);
+  const Ray r = {o.x, o.y, o.z, d.x, d.y, d.z, rcp_nudged(d.x), rcp_nudged(d.y), rcp_nudged(d.z)};
   int steps = 0;
   return walk<ANY, false>(node_rows, block_rows, nbase, (unsigned)(toff / BS) * BROW, r, slots,
                           stack, g, root, best_t, steps);
 }
 
+template <int KEPT>
 __global__ void __launch_bounds__(THREADS)
 bvh_rounds_closest_kernel(const float* __restrict__ node_rows,
-                          const float* __restrict__ block_rows, const float* __restrict__ o_l,
-                          const float* __restrict__ d_l, const float* __restrict__ tn,
-                          const float* __restrict__ best_t0, const int* __restrict__ noffs,
-                          const int* __restrict__ toffs, int n_inst, int n, int topk, int slots,
-                          float* __restrict__ t_out, int* __restrict__ tri_out,
-                          long long* __restrict__ inst_out) {
+                          const float* __restrict__ block_rows, const float4* __restrict__ tab,
+                          const float* __restrict__ origins, const float* __restrict__ dirs,
+                          const float* __restrict__ times, const float* __restrict__ best_t0,
+                          int n_inst, int n, int topk, int slots, float* __restrict__ t_out,
+                          int* __restrict__ tri_out, long long* __restrict__ inst_out) {
   extern __shared__ int stacks[];
   const int r = blockIdx.x * RAYS + threadIdx.x / GROUP;
   if (r >= n) return;
   const Group g(threadIdx.x);
-  int* stack = stacks + (threadIdx.x / GROUP) * slots;
-  const float* col = tn + r;
   float t_b = __ldg(best_t0 + r);
   int tri_b = -1, inst_b = 0;
-  float last_tn = -__int_as_float(0x7f800000);
-  int last_id = -1;
-  float p_tn;
-  int p_id;
-  next_entry(col, n, n_inst, g, last_tn, last_id, p_tn, p_id);
-  while (p_tn < t_b) {
-    // one round: the next topk picks, each under the round-start t_b
-    float t_r = __int_as_float(0x7f800000);
-    int tri_r = -1, inst_r = 0;
-    for (int k = 0; k < topk; ++k) {
-      if (k > 0) next_entry(col, n, n_inst, g, last_tn, last_id, p_tn, p_id);
-      last_tn = p_tn;
-      last_id = p_id;
-      if (!(p_tn < t_b && t_b > 0.0f)) continue;
-      float bt = t_b;
-      const int tri = walk_instance<false>(node_rows, block_rows, o_l, d_l, noffs, toffs, p_id,
-                                           (size_t)p_id * n + r, slots, stack, g, bt);
-      if (tri >= 0 && bt < t_r) {
-        t_r = bt;
-        tri_r = tri;
-        inst_r = p_id;
+  if (t_b > 0.0f) {  // else no entry is below it; t_b stays > 0 from here
+    int* stack = stacks + (threadIdx.x / GROUP) * slots;
+    const bool motion = times != nullptr;
+    const World w = load_world(origins, dirs, times, r);
+    const Entries<KEPT> en(tab, n_inst, motion, w, t_b, g.lane);
+    float p_tn = -inf();
+    int p_id = -1;
+    en.next(w, g, p_tn, p_id);
+    while (p_tn < t_b) {
+      // one round: the next topk picks, each under the round-start t_b
+      float t_r = inf();
+      int tri_r = -1, inst_r = 0;
+      for (int k = 0; k < topk; ++k) {
+        if (k > 0) en.next(w, g, p_tn, p_id);
+        if (!(p_tn < t_b)) break;
+        float bt = t_b;
+        const int tri = walk_instance<false>(node_rows, block_rows, tab, p_id, motion, w, slots,
+                                             stack, g, bt);
+        if (tri >= 0 && bt < t_r) {
+          t_r = bt;
+          tri_r = tri;
+          inst_r = p_id;
+        }
       }
+      if (t_r < t_b) {
+        t_b = t_r;
+        tri_b = tri_r;
+        inst_b = inst_r;
+      }
+      en.next(w, g, p_tn, p_id);
     }
-    if (t_r < t_b) {
-      t_b = t_r;
-      tri_b = tri_r;
-      inst_b = inst_r;
-    }
-    next_entry(col, n, n_inst, g, last_tn, last_id, p_tn, p_id);
   }
   if (g.lane == 0) {
     t_out[r] = t_b;
@@ -535,32 +635,34 @@ bvh_rounds_closest_kernel(const float* __restrict__ node_rows,
   }
 }
 
+template <int KEPT>
 __global__ void __launch_bounds__(THREADS)
 bvh_rounds_any_kernel(const float* __restrict__ node_rows, const float* __restrict__ block_rows,
-                      const float* __restrict__ o_l, const float* __restrict__ d_l,
-                      const float* __restrict__ tn, const float* __restrict__ tmax,
-                      const uint8_t* __restrict__ occ0, const int* __restrict__ noffs,
-                      const int* __restrict__ toffs, int n_inst, int n, int slots,
-                      uint8_t* __restrict__ occ_out) {
+                      const float4* __restrict__ tab, const float* __restrict__ origins,
+                      const float* __restrict__ dirs, const float* __restrict__ times,
+                      const float* __restrict__ tmax, const uint8_t* __restrict__ occ0,
+                      int n_inst, int n, int slots, uint8_t* __restrict__ occ_out) {
   extern __shared__ int stacks[];
   const int r = blockIdx.x * RAYS + threadIdx.x / GROUP;
   if (r >= n) return;
   const Group g(threadIdx.x);
-  int* stack = stacks + (threadIdx.x / GROUP) * slots;
-  const float* col = tn + r;
   const float tm = __ldg(tmax + r);
   bool occ = __ldg(occ0 + r) != 0;
-  // without an occluder so far, the entries below tmax in (tn, id) order
-  // until one occludes; with tmax <= 0 or NaN no walk can hit
+  // without an occluder so far, the entries below tmax in (entry, id)
+  // order until one occludes; with tmax <= 0 or NaN no walk can hit
   if (!occ && tm > 0.0f) {
-    float last_tn = -__int_as_float(0x7f800000);
-    int last_id = -1;
+    int* stack = stacks + (threadIdx.x / GROUP) * slots;
+    const bool motion = times != nullptr;
+    const World w = load_world(origins, dirs, times, r);
+    const Entries<KEPT> en(tab, n_inst, motion, w, tm, g.lane);
+    float p_tn = -inf();
+    int p_id = -1;
     while (true) {
-      next_entry(col, n, n_inst, g, last_tn, last_id, last_tn, last_id);
-      if (!(last_tn < tm)) break;
+      en.next(w, g, p_tn, p_id);
+      if (!(p_tn < tm)) break;
       float bt = tm;
-      if (walk_instance<true>(node_rows, block_rows, o_l, d_l, noffs, toffs, last_id,
-                              (size_t)last_id * n + r, slots, stack, g, bt) >= 0) {
+      if (walk_instance<true>(node_rows, block_rows, tab, p_id, motion, w, slots, stack, g,
+                              bt) >= 0) {
         occ = true;
         break;
       }
@@ -569,9 +671,25 @@ bvh_rounds_any_kernel(const float* __restrict__ node_rows, const float* __restri
   if (g.lane == 0) occ_out[r] = occ ? 1 : 0;
 }
 
-bool rounds_ok(int n_inst, int topk, int n, int slots, int threads, int rays_per_block, int smem,
-               int grid) {
-  return n_inst >= 1 && topk >= 1 && geometry_ok(n, slots, threads, rays_per_block, smem, grid);
+// kept: the entries a lane keeps in registers (ops/instances.py::
+// kept_entries): 1, 2, 4 or 8 covering the instances, or 0
+bool rounds_ok(int n_inst, int kept, int topk, int n, int slots, int threads, int rays_per_block,
+               int smem, int grid) {
+  const bool regs = kept == 1 || kept == 2 || kept == 4 || kept == MAX_KEPT;
+  return n_inst >= 1 && (kept == 0 || (regs && n_inst <= GROUP * kept)) && topk >= 1 &&
+         geometry_ok(n, slots, threads, rays_per_block, smem, grid);
+}
+
+// the kernel that keeps `kept` entries a lane
+template <class Kernel>
+Kernel by_kept(int kept, Kernel k0, Kernel k1, Kernel k2, Kernel k4, Kernel k8) {
+  switch (kept) {
+    case 1: return k1;
+    case 2: return k2;
+    case 4: return k4;
+    case MAX_KEPT: return k8;
+    default: return k0;
+  }
 }
 
 }  // namespace
@@ -612,28 +730,35 @@ extern "C" int tinsel_bvh_steps(const float* node_rows, const float* block_rows,
 }
 
 extern "C" int tinsel_bvh_rounds_closest(const float* node_rows, const float* block_rows,
-                                         const float* o_l, const float* d_l, const float* tn,
-                                         const float* best_t0, const int* noffs,
-                                         const int* toffs, int n_inst, int n, int topk,
-                                         int slots, int threads, int rays_per_block, int smem,
-                                         int grid, float* t_out, int* tri_out,
+                                         const float* tab, const float* origins,
+                                         const float* dirs, const float* times,
+                                         const float* best_t0, int n_inst, int kept, int n,
+                                         int topk, int slots, int threads, int rays_per_block,
+                                         int smem, int grid, float* t_out, int* tri_out,
                                          long long* inst_out, cudaStream_t stream) {
-  if (!rounds_ok(n_inst, topk, n, slots, threads, rays_per_block, smem, grid)) return 9001;
-  bvh_rounds_closest_kernel<<<grid, threads, smem, stream>>>(
-      node_rows, block_rows, o_l, d_l, tn, best_t0, noffs, toffs, n_inst, n, topk, slots, t_out,
-      tri_out, inst_out);
+  if (!rounds_ok(n_inst, kept, topk, n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  const auto kernel = by_kept(kept, &bvh_rounds_closest_kernel<0>, &bvh_rounds_closest_kernel<1>,
+                              &bvh_rounds_closest_kernel<2>, &bvh_rounds_closest_kernel<4>,
+                              &bvh_rounds_closest_kernel<MAX_KEPT>);
+  kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows,
+                                          reinterpret_cast<const float4*>(tab), origins, dirs,
+                                          times, best_t0, n_inst, n, topk, slots, t_out, tri_out,
+                                          inst_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tinsel_bvh_rounds_any(const float* node_rows, const float* block_rows,
-                                     const float* o_l, const float* d_l, const float* tn,
-                                     const float* tmax, const uint8_t* occ0, const int* noffs,
-                                     const int* toffs, int n_inst, int n, int slots, int threads,
+                                     const float* tab, const float* origins, const float* dirs,
+                                     const float* times, const float* tmax, const uint8_t* occ0,
+                                     int n_inst, int kept, int n, int slots, int threads,
                                      int rays_per_block, int smem, int grid, uint8_t* occ_out,
                                      cudaStream_t stream) {
-  if (!rounds_ok(n_inst, 1, n, slots, threads, rays_per_block, smem, grid)) return 9001;
-  bvh_rounds_any_kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows, o_l, d_l, tn,
-                                                         tmax, occ0, noffs, toffs, n_inst, n,
-                                                         slots, occ_out);
+  if (!rounds_ok(n_inst, kept, 1, n, slots, threads, rays_per_block, smem, grid)) return 9001;
+  const auto kernel = by_kept(kept, &bvh_rounds_any_kernel<0>, &bvh_rounds_any_kernel<1>,
+                              &bvh_rounds_any_kernel<2>, &bvh_rounds_any_kernel<4>,
+                              &bvh_rounds_any_kernel<MAX_KEPT>);
+  kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows,
+                                          reinterpret_cast<const float4*>(tab), origins, dirs,
+                                          times, tmax, occ0, n_inst, n, slots, occ_out);
   return (int)cudaGetLastError();
 }

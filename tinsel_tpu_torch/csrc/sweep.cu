@@ -92,6 +92,8 @@
 
 #include <mutex>
 
+#include "frame.cuh"  // V3, nmin / nmax, an instance's frame and its root-box test
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -102,32 +104,10 @@ constexpr int GROUP_HEAD = 12, TRI_LEN = 12, INSTANCE_STATIC = 8, INSTANCE_MOVIN
 enum : int { SPHERES_MOVE = 1 };
 enum : int { OPENS = 1, CLOSES = 2, MOVES = 4 };
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
-// torch.minimum / torch.maximum / torch.clamp: NaN if an operand is NaN
-__device__ __forceinline__ float nmin(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 __device__ __forceinline__ float nonzero(float x) { return fabsf(x) > 1e-30f ? x : 1e-30f; }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
 __device__ __forceinline__ float dot3(V3 a, V3 b) { return (a.x * b.x + a.y * b.y) + a.z * b.z; }
-__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ V3 xyz(float4 a) { return {a.x, a.y, a.z}; }
 
 // accel/sweep.py::sphere_hit: the stable quadratic, far root from inside
 __device__ __forceinline__ bool sphere_hit(V3 c, float rad, V3 o, V3 d, float& t) {
@@ -149,51 +129,6 @@ __device__ __forceinline__ bool plane_hit(float4 pl, V3 o, V3 d, float& t) {
   const float dn = dot3(n, d);
   t = -(dot3(n, o) + pl.w) / nonzero(dn);
   return fabsf(dn) > 1e-30f && t > 0.0f;
-}
-
-// accel/sweep.py::inverse_rotate: quat_rotate(conj(q), v) / s, u = -q.xyz;
-// x / 1 = x, so a scale of 1 (divide false) skips the divisions
-__device__ __forceinline__ V3 inverse_rotate(V3 u, float qw, V3 v, float s, bool divide) {
-  V3 t = cross3(u, v);
-  t = {2.0f * t.x, 2.0f * t.y, 2.0f * t.z};
-  const V3 c = cross3(u, t);
-  V3 r = {(v.x + qw * t.x) + c.x, (v.y + qw * t.y) + c.y, (v.z + qw * t.z) + c.z};
-  if (divide) r = {r.x / s, r.y / s, r.z / s};
-  return r;
-}
-
-// An instance's frame for one ray: (u = -q.xyz, q.w, p, s), the moving
-// form interpolated at the ray's time (accel/sweep.py::lerp_transform)
-struct Frame {
-  V3 u, p;
-  float qw, s;
-};
-
-__device__ __forceinline__ Frame moving_frame(float4 a, float4 q0, float4 b, float4 dq,
-                                              float time) {
-  float q[4] = {q0.x + dq.x * time, q0.y + dq.y * time, q0.z + dq.z * time, q0.w + dq.w * time};
-  const float n = sqrtf(nmax(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3], 1e-30f));
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = q[k] / n;
-  return {{-q[0], -q[1], -q[2]},
-          {a.x + b.x * time, a.y + b.y * time, a.z + b.z * time},
-          q[3],
-          a.w + b.w * time};
-}
-
-// accel/sweep.py::box_entry: may the ray hit the root box before tmax
-__device__ __forceinline__ float rcp_nudged(float d) {
-  const float eps = 1e-30f;
-  return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
-}
-__device__ __forceinline__ bool box_entry(float4 lo, float4 hi, V3 o, V3 d, float tmax) {
-  const float rx = rcp_nudged(d.x), ry = rcp_nudged(d.y), rz = rcp_nudged(d.z);
-  const float t0x = (lo.x - o.x) * rx, t1x = (hi.x - o.x) * rx;
-  const float t0y = (lo.y - o.y) * ry, t1y = (hi.y - o.y) * ry;
-  const float t0z = (lo.z - o.z) * rz, t1z = (hi.z - o.z) * rz;
-  const float tn = nmax(nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z)), 0.0f);
-  const float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z));
-  return tn <= tf && tn < tmax;
 }
 
 // A triangle record: v0, ab = v1 - v0, ac = v2 - v0, n = ab x ac

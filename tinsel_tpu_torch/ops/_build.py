@@ -3,9 +3,10 @@
 Each CUDA source ``csrc/<name>.cu`` (nvcc) and each host C++ source in
 ``HOST_SOURCES`` (g++: the BVH builder ``native/bvh_builder.cpp``) becomes
 ``_build/lib<name>-<hash>.so``, a shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds). The hash covers the source
-and the flags, so an edited source is rebuilt; a finished library is
-reused. A failed build raises with the compiler's output.
+(no PyTorch headers, so a build takes seconds). The hash covers the source,
+every header under ``csrc/`` that it includes (``#include "..."``, followed
+through the headers) and the flags, so an edited source or header is
+rebuilt; a finished library is reused. A failed build raises with the compiler's output.
 The TMA tensor maps are encoded by libcuda's cuTensorMapEncodeTiled,
 reached through the CUDA runtime's entry-point query, so nothing links
 against libcuda. Nothing is compiled when the package is imported: the
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -84,8 +86,25 @@ def gxx() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def headers(path: Path) -> list:
+    """The local headers ``path`` includes, directly or through another
+    one, each once, in the order they are first met."""
+    out, todo = [], [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            h = path.parent / inc.decode()
+            if h not in out:
+                out.append(h)
+                todo.append(h)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = source(name).read_bytes()
+    path = source(name)
+    src = path.read_bytes() + b"".join(h.read_bytes() for h in headers(path))
     digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

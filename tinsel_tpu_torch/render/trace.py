@@ -10,18 +10,22 @@ Two searches, each without gradient (the JAX package's ``stop_gradient``):
 * every other mesh primitive joins ONE batch of (instance, ray) lanes with
   per-lane sub-BVH offsets, walked by kernels K3 (closest) and K4 (any
   hit) through ``ops/bvh.py`` after a root-box cull, with the sweep's t as
-  its bound. Above ``INSTANCE_TOPK_MIN`` big instances the batch walks
-  only the ``INSTANCE_TOPK`` nearest-entry instances per ray per round,
-  repeating while some ray's next unvisited box entry still beats its best
-  hit (``_instance_rounds``): kernels K6c / K6a through
-  ``ops/instances.py``, every round of a call in one launch.
+  its bound (the local rays and box entries by ``accel/sweep.py``'s
+  component formulas). Above ``INSTANCE_TOPK_MIN`` big instances the batch
+  walks only the ``INSTANCE_TOPK`` nearest-entry instances per ray per
+  round, repeating while some ray's next unvisited box entry still beats
+  its best hit (``_instance_rounds``): kernels K6c / K6a through
+  ``ops/instances.py``, every round of a call in one launch, from the
+  world rays and the scene's instance table (``ops/instances.py::table``):
+  nothing per (instance, ray) pair is built there.
 
 Hits merge in the JAX order (spheres, planes, tiny groups, the big batch)
 with a strict ``<``, so ties keep the earlier primitive. Each search's
 winner is then intersected again with grad enabled (``_refit`` for the
 sweep's, with its formulas, so t keeps its bits; the big batch's
-triangle with the walk's formula, ``accel/traverse.py::tri_refit``, so a
-ray through a seam keeps the hit that the walk found), so gradients reach
+triangle with the walk's formula, ``accel/traverse.py::tri_refit``, in the
+winner's frame taken from its transform rows with the search's formulas,
+so a ray through a seam keeps the hit that the walk found), so gradients reach
 the ray and the primitive's transform, radius or plane, and the pool's
 vertices and normals where ``MESH_VERTEX_GRADS`` is on. The final normal
 is face-forwarded against the ray.
@@ -29,7 +33,7 @@ is face-forwarded against the ray.
 The JAX package's two switches of this module are read at call time, so
 ``monkeypatch.setattr`` flips them: ``MESH_VERTEX_GRADS`` and
 ``STATIC_TRANSFORM_HOIST`` (which reaches the sweep's layout and packed
-table as an argument).
+table and the instance table as an argument).
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from ..core.math import (
     quat_rotate,
     safe_normalize,
 )
+from ..accel import instances as plain_instances
 from ..accel.instances import INSTANCE_TOPK  # noqa: F401 (the JAX module's name)
 from ..accel.traverse import tri_refit
 from ..geometry.intersect import INF
@@ -157,18 +162,20 @@ def _lane_offsets(off, r):
     return off.repeat_interleave(r)
 
 
-def _instance_rounds(scene, o_l, d_l, tn, best_t0, noff, toff, stack_slots):
-    """tn-ordered top-k instance rounds, closest hit (port of
-    ``tinsel_tpu/render/trace.py:267``): kernel K6c on the card, the plain
-    rounds (``accel/instances.py``) on the CPU. Returns (t, tri, inst)."""
-    return ops_instances.rounds_closest(scene, o_l, d_l, tn, best_t0, noff, toff, stack_slots)
+def _instance_rounds(scene, tab, origins, dirs, times, best_t0):
+    """Entry-ordered top-k instance rounds, closest hit, from world rays
+    (port of ``tinsel_tpu/render/trace.py:267`` with the local rays and box
+    entries built for it): kernel K6c on the card, the plain rounds
+    (``accel/instances.py``) on the CPU. tab: the scene's instance table
+    (``ops/instances.py::table``). Returns (t, tri, inst)."""
+    return ops_instances.rounds_closest(scene, tab, origins, dirs, times, best_t0)
 
 
-def _instance_rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots):
+def _instance_rounds_any(scene, tab, origins, dirs, times, tmax, occ):
     """The rounds, occlusion form (``tinsel_tpu/render/trace.py:330``):
     kernel K6a on the card. tmax (R,) is 0 where a ray is already
     occluded. Returns (R,) bool."""
-    return ops_instances.rounds_any(scene, o_l, d_l, tn, tmax, occ, noff, toff, stack_slots)
+    return ops_instances.rounds_any(scene, tab, origins, dirs, times, tmax, occ)
 
 
 def _vertices(pool, gt):
@@ -256,57 +263,62 @@ class BigHits:
 
 def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits:
     """Every big-mesh primitive as ONE batch of (instance, ray) lanes walked
-    by kernel K3 with ``best_t`` as the bound (the shortlist rounds above
-    ``INSTANCE_TOPK_MIN`` instances), then the winning triangle intersected
-    again under autograd with the walk's own formula (``tri_refit``). The
-    JAX package takes ``intersect_ray_tri`` there, which at a seam can miss
-    a triangle that the walk hit, and drops that ray."""
+    by kernel K3 with ``best_t`` as the bound (above ``INSTANCE_TOPK_MIN``
+    instances the shortlist rounds, K6c, from the world rays: no (I, R)
+    tensor), then the winning triangle intersected again under autograd
+    with the walk's own formula (``tri_refit``) in the winner's frame, taken
+    from its transform rows with the search's formulas, so its t is the
+    walk's bit for bit. The JAX package takes ``intersect_ray_tri`` there,
+    which at a seam can miss a triangle that the walk hit, and drops that
+    ray."""
     r = origins.shape[0]
     dev = origins.device
-    idxs = list(lay.big)
-    handles = [scene.prim_static[i].mesh for i in idxs]
-    n_inst = len(idxs)
-    tr_b, o_l, d_l = _local_rays(scene, idxs, origins, dirs, times)
-    inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
-    noff, toff, slots = _offsets(handles, dev)
+    tab = ops_instances.table(scene, dev, STATIC_TRANSFORM_HOIST)
+    n_inst = len(tab.prims)
 
     # the discrete search for the winning triangle runs without grad
     with torch.no_grad():
-        tmax_b = torch.broadcast_to(best_t[None, :], (n_inst, r))
-        may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
-        tmax_i = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
-        o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
         if n_inst <= INSTANCE_TOPK_MIN:
+            o_l, d_l, tn = plain_instances.world_inputs(scene, tab, origins, dirs, times, best_t)
+            tmax_i = torch.where(torch.isfinite(tn), best_t[None, :], 0.0).reshape(n_inst * r)
             t_f, tri_f = ops_bvh.closest_hit(
-                scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
-                o_f, d_f, tmax_i, slots,
+                scene.pool, _lane_offsets(tab.noff, r), _lane_offsets(tab.toff, r),
+                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tmax_i, tab.slots,
             )
+            del o_l, d_l, tn
             # local t equals world t (uniform scale folds into |d_l|)
             t_i = t_f.reshape(n_inst, r)
             tri_i = tri_f.reshape(n_inst, r)
             t_min = t_i.min(dim=0).values
+            inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
             inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
             inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
             tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
         else:
-            t_min, tri, inst = _instance_rounds(
-                scene, o_l, d_l, tn, best_t, noff, toff, slots
-            )
+            t_min, tri, inst = _instance_rounds(scene, tab, origins, dirs, times, best_t)
         hit = torch.isfinite(t_min) & (t_min < best_t)
 
-    # winning instance's local ray + rotation, then a differentiable
-    # re-intersection at the found triangle
-    onehot = (inst_ids == inst[None, :]).to(torch.float32)  # (I, R)
-    ow = (onehot[..., None] * o_l).sum(dim=0)
-    dw = (onehot[..., None] * d_l).sum(dim=0)
-    qw = (onehot[..., None] * tr_b.q).sum(dim=0)
+    # the winner's transform rows (gradient to the winning row only: the
+    # gather's backward is a one-hot matmul) and the ray in its frame,
+    # then a differentiable re-intersection at the found triangle
+    pr = scene.prims
+    prim_ids = tab.prim_ids[inst]
+    cols = [pr.start_p, pr.start_q, pr.start_s[:, None]]
+    if tab.motion:
+        cols += [pr.end_p, pr.end_q, pr.end_s[:, None]]
+    (rows,) = _GatherRows.apply(prim_ids, torch.cat(cols, dim=1))
+    c = rows.unbind(-1)
+    p, q, s = c[0:3], c[3:7], c[7]
+    if tab.motion:  # every instance of the batch is interpolated
+        p, q, s = lerp_transform(p, q, s, c[8:11], c[11:15], c[15], times)
+    ow, dw = local_ray(p, q, s, origins.unbind(-1), dirs.unbind(-1))
+    qw = torch.stack(q, -1)
 
-    gt = toff.long()[inst] + torch.clamp(tri, min=0).long()
+    gt = tab.toff.long()[inst] + torch.clamp(tri, min=0).long()
     v0, v1, v2, n0, n1, n2 = _vertices(scene.pool, gt)
     # the walk's own formula, so t is the walk's bit for bit and a hit at
     # a seam of two triangles is kept
-    _, t, u, v, w, n_geo = tri_refit(v0.unbind(-1), v1.unbind(-1), v2.unbind(-1),
-                                     ow.unbind(-1), dw.unbind(-1))
+    _, t, u, v, w, n_geo = tri_refit(v0.unbind(-1), v1.unbind(-1), v2.unbind(-1), ow, dw)
     n_geo = torch.stack(n_geo, -1)
     t = torch.where(hit & (tri >= 0), t, INF)
     ns = u[..., None] * n0 + v[..., None] * n1 + w[..., None] * n2
@@ -315,9 +327,8 @@ def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits
     n = safe_normalize(
         quat_rotate(qw, ns), fallback=safe_normalize(quat_rotate(qw, n_geo))
     )
-    prim_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)[inst]
     closer = hit & (t > 0.0) & (t < best_t)
-    return BigHits(hit=hit, closer=closer, t=t, prim=prim_ids, normal=n)
+    return BigHits(hit=hit, closer=closer, t=t, prim=prim_ids.to(torch.int32), normal=n)
 
 
 def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
@@ -349,24 +360,19 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
     hoist = STATIC_TRANSFORM_HOIST
     occ = ops_sweep.sweep_any(scene, origins, dirs, times, tmax, hoist=hoist)
 
-    big = list(layout(scene.prim_static, hoist).big)
-    if big:
-        handles = [scene.prim_static[i].mesh for i in big]
-        n_inst = len(big)
-        _, o_l, d_l = _local_rays(scene, big, origins, dirs, times)
-        noff, toff, slots = _offsets(handles, dev)
+    if layout(scene.prim_static, hoist).big:
+        tab = ops_instances.table(scene, dev, hoist)
+        n_inst = len(tab.prims)
         # already-occluded rays get tmax 0 -> no hit in any frame
         tmax_r = torch.where(occ, 0.0, tmax)
-        tmax_b = torch.broadcast_to(tmax_r[None, :], (n_inst, r))
-        may_hit, tn = _instance_box_entry(handles, o_l, d_l, tmax_b)
         if n_inst <= INSTANCE_TOPK_MIN:
-            tm = torch.where(may_hit, tmax_b, 0.0).reshape(n_inst * r)
-            o_f, d_f = o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3)
+            o_l, d_l, tn = plain_instances.world_inputs(scene, tab, origins, dirs, times, tmax_r)
+            tm = torch.where(torch.isfinite(tn), tmax_r[None, :], 0.0).reshape(n_inst * r)
             oc = ops_bvh.any_hit(
-                scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r), o_f, d_f,
-                tm, slots,
+                scene.pool, _lane_offsets(tab.noff, r), _lane_offsets(tab.toff, r),
+                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tm, tab.slots,
             )
             occ = occ | oc.reshape(n_inst, r).any(dim=0)
         else:
-            occ = _instance_rounds_any(scene, o_l, d_l, tn, tmax_r, occ, noff, toff, slots)
+            occ = _instance_rounds_any(scene, tab, origins, dirs, times, tmax_r, occ)
     return occ
