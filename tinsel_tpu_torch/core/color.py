@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import traced
+
 GAMMA = 2.2
 
 
@@ -79,6 +81,7 @@ def tonemap_reinhard(c, limit=1.0):
     return c / (1.0 + lum / limit)[..., None]
 
 
+@traced("app.resolve")
 def resolve(accum, exposure=1.0, limit=1.0, tonemap="filmic"):
     """RGBA accumulation buffer (premultiplied color, weight in alpha) ->
     display sRGB in [0, 1]. ``tonemap``: "filmic" or "reinhard" (where

@@ -14,6 +14,8 @@ import zlib
 
 import numpy as np
 
+from ..utils.profiling import traced
+
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
     return (
@@ -32,6 +34,7 @@ def quantize_dithered(img: np.ndarray, rng: np.random.Generator | None = None):
     return q.astype(np.uint8)
 
 
+@traced("app.png")
 def encode_png(img: np.ndarray, dither: bool = True) -> bytes:
     """img: (H, W, 3) or (H, W, 4) float in [0,1] or uint8, or (H, W)
     gray -> PNG bytes. A host array: copy a device tensor to the host

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..render import nlm as _plain
+from ..utils.profiling import traced
 from . import _build
 
 # Launches per kernel since the last reset; a wrapper adds one where it
@@ -315,12 +316,14 @@ def nlm_guided_cuda(img, normal, albedo, depth, falloff: float = 200.0,
     )
 
 
+@traced("app.denoise")
 def nlm_denoise(img, falloff: float = 200.0, radius: int = 1):
     """Dispatcher (the CLI's ``-denoise``): kernel K1 for a CUDA tensor,
     the plain version for a CPU tensor."""
     return nlm_filter_cuda(img, falloff, radius)
 
 
+@traced("app.denoise")
 def nlm_guided_denoise(img, normal, albedo, depth, **kw):
     """Dispatcher (the CLI's ``-denoise-guided``): kernel K2 for CUDA
     tensors, the plain version for CPU tensors."""

@@ -9,10 +9,12 @@ import torch
 
 from ..io.hdr import save_pfm
 from ..scene.model import SceneFlat
+from ..utils.profiling import traced
 from .camera import CameraParams, generate_rays
 from .trace import trace_closest
 
 
+@traced("app.aovs")
 @torch.no_grad()
 def render_aovs(scene: SceneFlat, cam: CameraParams, width: int, height: int):
     """Returns dict(normal=(H,W,3) in [-1,1], depth=(H,W,1) hit distance

@@ -10,6 +10,7 @@ import torch
 
 from ..core.math import normalize, quat_rotate
 from ..device import resolve_device
+from ..utils.profiling import count_sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +50,7 @@ def raster_to_world_matrix(cam: CameraParams, width: int, height: int):
     cam_to_world[:3, :3] = cols
     cam_to_world[:3, 3] = cam.position
     cam_to_world[3, 3] = 1.0
+    count_sync()  # the scalar's host-to-device copy waits for the card
 
     raster_to_screen = torch.tensor(
         [
@@ -60,6 +62,7 @@ def raster_to_world_matrix(cam: CameraParams, width: int, height: int):
         dtype=torch.float32,
         device=dev,
     )
+    count_sync()  # and so does the table's
     f = torch.tan(cam.fov * 0.5)
     aspect = width / height
     one = torch.ones_like(f)

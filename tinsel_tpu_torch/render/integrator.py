@@ -26,6 +26,7 @@ from ..core.math import basis_from_vector, dot, face_forward, lerp
 from ..core.sampling import Prefixed
 from ..ops import bvh as ops_bvh
 from ..scene.model import MESH, SceneFlat
+from ..utils.profiling import count_sync, span
 from .bump import bump_normal
 from .lights import RAY_EPS, K_BSDF_SAMPLES, K_PROBE_SAMPLES, sample_lights
 from .probe import probe_pdf, sky_eval
@@ -192,10 +193,13 @@ def path_trace(scene: SceneFlat, origins, dirs, times, max_depth: int, source,
     bounce = _make_bounce(scene, times, source, r, rr_depth, light_sampling)
     state = _initial_state(origins, dirs)
     for i in range(max_depth):
-        # dead-bounce skip (changes no value); one host sync per bounce
-        if i > 0 and not bool(state["alive"].any()):
-            break
-        state = bounce(state, i)
+        with span("integrator.bounce", i=i):
+            state = bounce(state, i)
+            if i + 1 < max_depth:
+                # dead-bounce skip (changes no value); one host sync a bounce
+                count_sync()
+                if not bool(state["alive"].any()):
+                    break
     return state["rad"]
 
 

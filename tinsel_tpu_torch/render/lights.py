@@ -38,6 +38,7 @@ from ..core.math import (
 from ..core.sampling import Prefixed, uniform_sample_sphere, uniform_sample_triangle
 from ..core.search import lower_bound
 from ..scene.model import MESH, SPHERE, SceneFlat, _GatherRows
+from ..utils.profiling import traced
 from . import trace
 from .probe import probe_sample_uniforms
 from .trace import prim_transform, trace_any, trace_closest
@@ -176,6 +177,7 @@ def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
     return torch.where(accept[..., None], contrib, torch.zeros_like(contrib))
 
 
+@traced("lights.nee")
 def sample_lights(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source,
                   light_sampling: str = "all"):
     """Direct lighting at surface points p with shading normals n.

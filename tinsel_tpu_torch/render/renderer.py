@@ -19,6 +19,7 @@ from ..core.math import clamp_length, lerp
 from ..core.sampling import Lanes, PathUniforms, Prefixed, best_candidate_2d
 from ..device import resolve_device
 from ..scene.model import Options, SceneFlat
+from ..utils.profiling import traced
 from .camera import CameraParams, generate_rays
 from .filters import splat
 from .integrator import path_trace, trace_complexity, trace_normals
@@ -70,6 +71,7 @@ def _sample_grid(width: int, height: int, cam: CameraParams, source,
     return rx, ry, times
 
 
+@traced("render.pass")
 def render_pass(
     scene: SceneFlat,
     cam: CameraParams,

@@ -69,6 +69,7 @@ from ..ops import bvh as ops_bvh
 from ..ops import instances as ops_instances
 from ..ops import sweep as ops_sweep
 from ..scene.model import MESH, PLANE, SPHERE, SceneFlat, _GatherRows
+from ..utils.profiling import traced
 
 INSTANCE_TOPK_MIN = 12  # shortlist rounds engage above this instance count
 MESH_VERTEX_GRADS = False  # gradients into the pool's vertex and normal
@@ -331,6 +332,7 @@ def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits
     return BigHits(hit=hit, closer=closer, t=t, prim=prim_ids.to(torch.int32), normal=n)
 
 
+@traced("trace.closest")
 def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     """Closest hit over all primitives. origins/dirs (R, 3), times (R,)."""
     hoist = STATIC_TRANSFORM_HOIST
@@ -350,6 +352,7 @@ def trace_closest(scene: SceneFlat, origins, dirs, times) -> Hit:
     return Hit(t=best_t, prim=best_prim, normal=best_n)
 
 
+@traced("trace.any")
 @torch.no_grad()
 def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
     """Occlusion query: any primitive hit with 0 < t < tmax. (R,) bool."""
