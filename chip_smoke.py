@@ -23,7 +23,18 @@ Phases, each fatal on failure (exit code 1):
    -> ``nlm_guided_denoise`` (kernel K2), with the kernels' launch counts
    reset just before and read just after; the sweep kernels K5c / K5a
    counted around the render alone, one launch for each trace_closest /
-   trace_any call (16 + 16); then the trace/shading split of one render
+   trace_any call (16 + 16), and NEE's K8 / K9 one launch each a light
+   sample; then NEE's kernels (``nee_phase``): K8 and K9 against their
+   plain versions on the inputs of their first calls in a pass of 1M
+   paths of Cornell (the quad light through its area CDF) and of the
+   probe-lit envmesh with ajaxenv's marble and a sphere light of 10
+   samples (K8 on the sphere, K9's light and probe forms), K8 bit for bit
+   and K9 within 1e-6 relative, each timed beside its plain version with
+   its bound from the call's own bytes; a whole pass of each scene with
+   the kernels against the same pass with the plain path forced, at
+   equal draws, by portbench's ``px_off`` / ``rel_l1``; and the rounding
+   of a pass's increment read back from an f32 accumulator after k
+   passes; then the trace/shading split of one render
    pass and its profile; K5's A/B in one run, a trace_closest and a
    trace_any call of a Cornell pass (1M rays each) and one whole pass,
    through a kept copy of the torch-op sweep (``old_trace_closest``,
@@ -528,6 +539,7 @@ def main_path(ops_nlm, dev):
     from tinsel_tpu_torch.render.renderer import render
     from tinsel_tpu_torch.scene.presets import cornell_scene
 
+    from tinsel_tpu_torch.ops import nee as ops_nee
     from tinsel_tpu_torch.ops import sweep as ops_sweep
     from tinsel_tpu_torch.render import integrator, lights
 
@@ -551,11 +563,13 @@ def main_path(ops_nlm, dev):
     try:
         ops_nlm.reset_launch_counts()
         ops_sweep.reset_launch_counts()
+        ops_nee.reset_launch_counts()
         t0 = time.perf_counter()
         accum = render(sc, spp=MAIN_SPP, seed=0, device=dev)
         torch.cuda.synchronize()
         t_render = time.perf_counter() - t0
         sweeps = dict(ops_sweep.launch_counts)
+        nees = dict(ops_nee.launch_counts)
     finally:
         integrator.trace_closest, lights.trace_any = orig
     img = resolve(accum)
@@ -582,7 +596,11 @@ def main_path(ops_nlm, dev):
     if (sweeps["sweep_closest"] != traced["trace_closest"] or sweeps["sweep_any"]
             != traced["trace_any"] or min(sweeps.values()) < 1):
         fail(f"main path: sweep launches {sweeps} for trace calls {traced}")
+    # no probe: each of NEE's trace_any calls is one light sample's
+    if not nees["nee_light"] == nees["nee_shade"] == traced["trace_any"]:
+        fail(f"main path: NEE launches {nees} for {traced['trace_any']} light samples")
     launches.update(sweeps)
+    launches.update(nees)
 
     n_lights = sum(flat.prim_static[j].light_samples for j in flat.light_indices)
     rays = MAIN_W * MAIN_H * MAIN_DEPTH * (1 + n_lights) * MAIN_SPP
@@ -595,6 +613,186 @@ def main_path(ops_nlm, dev):
         launches=launches, trace_calls=traced,
     ))
     return img, aov, launches
+
+
+# ------------------------------------------------------------- NEE: K8, K9
+
+NEE_TOL = dict(rtol=1e-6, atol=1e-12)  # K9 against shade_plain, per value
+READBACK_PASSES = (1, 100, 300, 600, 1000)
+
+
+def nee_envmesh_scene():
+    """``probe_scene()`` with ajaxenv's NEE: its mesh a marble (subsurface,
+    transmission 0.3 at eta 1.5, clearcoat) under a sphere light of 10
+    samples, beside the probe's sample."""
+    from tinsel_tpu_torch.scene import model
+
+    sc = probe_scene()
+    sc.primitives[0].material = model.Material(
+        color=np.array([0.8, 0.75, 0.7], np.float32), roughness=0.2, specular=0.5,
+        subsurface=0.8, transmission=0.3, eta=1.5, clearcoat=0.5, clearcoat_gloss=0.7)
+    sc.add_primitive(model.Primitive(
+        type=model.SPHERE, radius=0.3,
+        start_transform=model.HostTransform(p=np.array([1.2, 2.4, 1.0], np.float32)),
+        material=model.Material(color=np.zeros(3, np.float32),
+                                emission=np.array([30.0, 28.0, 24.0], np.float32)),
+        light_samples=10))
+    return sc
+
+
+def capture_nee(run):
+    """Run ``run()`` keeping the first call of each NEE kernel form ("K8",
+    "K9 light", "K9 probe"), tensor arguments cloned: {form: (args,
+    kwargs)}."""
+    from tinsel_tpu_torch.ops import nee
+
+    kept = {}
+    orig = nee.light_sample, nee.shade
+
+    def keep(form, fn):
+        def wrapped(*a, **k):
+            if form(k) not in kept:
+                kept[form(k)] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), k)
+            return fn(*a, **k)
+        return wrapped
+
+    nee.light_sample = keep(lambda k: "K8", orig[0])
+    nee.shade = keep(lambda k: "K9 probe" if k.get("probe") else "K9 light", orig[1])
+    try:
+        run()
+    finally:
+        nee.light_sample, nee.shade = orig
+    return kept
+
+
+def nee_bytes(form, args, kwargs) -> int:
+    """Device-memory bytes of one K8 / K9 launch on these inputs: what the
+    kernel reads a lane (a one-row transform or emission stays in cache)
+    and writes; K9 reads and writes its accumulator."""
+    def lanes(*ts):
+        r = args[3].shape[0]
+        return sum(t.numel() * t.element_size() for t in ts
+                   if torch.is_tensor(t) and t.dim() >= 1 and t.shape[0] == r)
+
+    if form == "K8":
+        scene, j, tr, p, n, times, uni = args[:7]
+        return lanes(p, n, *uni, tr.p, tr.q, tr.s) + 9 * 4 * p.shape[0]  # 36 B out
+    mat, eta_i, eta_o, n, wo, wi, vis, _, light_t, area_nl, emission = args[:11]
+    fields = [getattr(mat, k) for k in ("color", "specular", "specular_tint", "metallic",
+                                        "roughness", "subsurface", "transmission",
+                                        "clearcoat", "clearcoat_gloss")]
+    return lanes(*fields, eta_i, eta_o, n, wo, wi, vis, light_t, area_nl, emission,
+                 kwargs.get("pmf")) + 2 * lanes(args[-1])
+
+
+def check_nee(form, scene_tag, args, kwargs) -> dict:
+    """One captured K8 / K9 call against its plain version on the card:
+    K8 every output bit for bit, K9 within NEE_TOL; device ms of each
+    (``device_ms``), the bound from ``nee_bytes``."""
+    from tinsel_tpu_torch.ops import nee
+
+    if form == "K8":
+        name = "nee_light"
+        kern = lambda: nee.light_sample(*args, **kwargs)  # noqa: E731
+        plain = lambda: nee.light_sample_plain(*args, **kwargs)  # noqa: E731
+    else:
+        name = "nee_shade"
+        *head, out = args
+        acc = out.clone()
+        kern = lambda: nee.shade(*head, acc, **kwargs)  # noqa: E731
+        plain = lambda: out + nee.shade_plain(*head, **kwargs)  # noqa: E731
+    with torch.no_grad():
+        before = nee.launch_counts[name]
+        if form == "K8":
+            got, want = kern(), plain()
+            pairs = list(zip(got, want))
+        else:
+            got, want = nee.shade(*head, out.clone(), **kwargs), plain()
+            pairs = [(got, want)]
+        torch.cuda.synchronize()
+        if nee.launch_counts[name] != before + 1:
+            fail(f"{name} {scene_tag}: the wrapper did not count its launch")
+        mismatched, off, err, bit_equal = 0, 0, 0.0, 0
+        for g, w in pairs:
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            mismatched += int((~same).sum())
+            bad = ~((g - w).abs() <= NEE_TOL["atol"] + NEE_TOL["rtol"] * w.abs()) & ~same
+            off += int(bad.sum())
+            err = max(err, float(torch.where(same, 0.0, (g - w).abs()).max()))
+        if form != "K8":
+            bit_equal = float((got == want).all(dim=-1).float().mean())
+        kernel_ms = device_ms(lambda: kern(), [()])
+        plain_ms = device_ms(lambda: plain(), [()])
+    nbytes = nee_bytes(form, args, kwargs)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(kernel=name, form=form, shape=f"{scene_tag}, {args[3].shape[0]} lanes",
+               mismatched=mismatched, off_tolerance=off, max_abs_err=err,
+               lanes_bit_equal=bit_equal if form != "K8" else None, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, bytes_per_lane=nbytes / args[3].shape[0], bound_ms=bound_ms,
+               bound_by="bytes", bound_share=bound_ms / kernel_ms, launches=1, library_ms=None)
+    emit(rec)
+    if form == "K8" and mismatched:
+        fail(f"K8 {scene_tag}: {mismatched} values differ from the plain version")
+    if off:
+        fail(f"K9 {scene_tag}: {off} values off the plain version by more than {NEE_TOL}")
+    return rec
+
+
+def pass_numbers(p, r) -> dict:
+    """portbench's ``px_off`` and ``rel_l1`` of ``p`` against ``r``, and
+    the share of values equal bit for bit."""
+    p, r = p.double(), r.double()
+    d = (p - r).abs()
+    return dict(px_off=float((~(d <= 1e-4 + 1e-3 * r.abs())).double().mean()),
+                rel_l1=float(d.sum() / r.abs().sum().clamp_min(1e-300)),
+                bit_equal=float((p == r).double().mean()))
+
+
+def nee_phase(dev) -> dict:
+    """K8 / K9 on the main path's inputs (one pass of 1M paths of each
+    scene), a whole pass with the kernels against the plain path forced,
+    and the f32 read-back of a pass's increment. Returns {form: [record]}."""
+    from tinsel_tpu_torch.ops import nee
+    from tinsel_tpu_torch.render.renderer import render
+    from tinsel_tpu_torch.scene.presets import cornell_scene
+
+    scenes = (("cornell", cornell_scene(MAIN_W, MAIN_H, MAIN_DEPTH)),
+              ("envmesh marble + sphere light", nee_envmesh_scene()))
+    spp = spp_per_pass(4, MAIN_W, MAIN_H)
+    recs = {"K8": [], "K9 light": [], "K9 probe": []}
+    for tag, sc in scenes:
+        seed = 2147483911
+        kept = capture_nee(lambda: render(sc, spp=spp, seed=seed, device=dev))
+        for form, (args, kwargs) in kept.items():
+            recs[form].append(check_nee(form, tag, args, kwargs))
+        del kept
+        fused = render(sc, spp=spp, seed=seed, device=dev)
+        orig = nee.fuses
+        nee.fuses = lambda p: False
+        try:
+            nee.reset_launch_counts()
+            plain = render(sc, spp=spp, seed=seed, device=dev)
+            if sum(nee.launch_counts.values()):
+                fail(f"NEE pass {tag}: the plain path launched {nee.launch_counts}")
+        finally:
+            nee.fuses = orig
+        torch.cuda.synchronize()
+        rec = dict(phase="nee_pass", scene=f"{tag} {MAIN_W}x{MAIN_H} d{sc.options.max_depth}",
+                   spp=spp, seed=seed, **pass_numbers(fused, plain))
+        if tag == "cornell":
+            # a pass's increment as the benchmark reads it back: the f32
+            # accumulator after k passes (k times this one) plus the pass,
+            # less the accumulator
+            readback = {}
+            for k in READBACK_PASSES:
+                base = fused * float(k)
+                readback[k] = pass_numbers((base + fused).double() - base.double(),
+                                           fused)["rel_l1"]
+            rec["readback_rel_l1_after_k_passes"] = readback
+        emit(rec)
+        if rec["px_off"] > 0.0 or not rec["rel_l1"] < 1e-5:
+            fail(f"NEE pass {tag}: the kernels' pass is off the plain path's: {rec}")
+    return recs
 
 
 def trace_split_phase(dev):
@@ -1708,6 +1906,8 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn, render
 
+    from tinsel_tpu_torch.ops import nee as ops_nee
+
     sc = probe_scene()
     t0 = time.perf_counter()
     flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
@@ -1717,6 +1917,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     torch.cuda.synchronize()
     ops_bvh.reset_launch_counts()
     ops_nlm.reset_launch_counts()
+    ops_nee.reset_launch_counts()
     t1 = time.perf_counter()
     accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
     source = PathUniforms(0, dev)
@@ -1730,7 +1931,10 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     t_all = time.perf_counter() - t1
     launches = {"bvh_closest": ops_bvh.launch_counts["bvh_closest"],
                 "bvh_any": ops_bvh.launch_counts["bvh_any"],
-                "nlm_filter": ops_nlm.launch_counts["nlm_filter"]}
+                "nlm_filter": ops_nlm.launch_counts["nlm_filter"],
+                "nee_shade": ops_nee.launch_counts["nee_shade"]}
+    if ops_nee.launch_counts["nee_light"] != 0:  # the probe is the scene's one light
+        fail(f"probe path: K8 launched without an area light: {ops_nee.launch_counts}")
     mean = float(img.mean())
     if not torch.isfinite(accum).all() or not torch.isfinite(den).all() or not 0.01 < mean < 0.99:
         fail(f"probe path: the image is not finite or is black (mean {mean})")
@@ -4170,6 +4374,7 @@ def main():
     worst = kernel_phase(ops_nlm, plain, dev)
     equal_draw_phase(dev)
     img, aov, launches = main_path(ops_nlm, dev)
+    nee_recs = nee_phase(dev)
     k1, k2 = main_inputs_phase(ops_nlm, plain, img, aov)
     trace_split_phase(dev)
     profile_phase(dev)
@@ -4209,6 +4414,7 @@ def main():
     launches["bvh_steps"] = probe_launches["bvh_steps"]
     for k in K6_NAMES:
         launches[k] = big_launches[k] + k6_launches[k] + file_launches[k]
+    launches["nee_shade"] += probe_launches["nee_shade"]  # the probe's form
     # K5c/K5a: the main path's frame (phase 5), then the entry points
     for k in KERNEL_NAMES:
         launches[k] += entry_launches[k]
@@ -4292,6 +4498,19 @@ def main():
         table.append(dict(
             name=key, route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
             replaces=replaces, launches=launches[key], max_abs_err=max(errs),
+            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
+        ))
+    # K8 / K9 at the main path's own inputs: Cornell's first light sample
+    # of a pass (1M lanes); the error is the worst over every input held
+    for key, forms in (("nee_light", ("K8",)), ("nee_shade", ("K9 light", "K9 probe"))):
+        held = [r for f in forms for r in nee_recs[f]]
+        rec = next(r for r in held if r["shape"].startswith("cornell"))
+        table.append(dict(
+            name=key, route="cuda", source="tinsel_tpu_torch/csrc/nee.cu",
+            replaces="none (no TPU kernel: tinsel_tpu/render/lights.py:sample_lights is "
+                     "plain JAX)", launches=launches[key],
+            max_abs_err=max(r["max_abs_err"] for r in held),
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
         ))

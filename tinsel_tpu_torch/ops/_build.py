@@ -15,7 +15,7 @@ first launch builds, or ``build_all`` does.
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v [-fmad=false] -o lib<name>.so csrc/<name>.cu
 
-(``-fmad=false`` for ``bvh.cu`` and ``sweep.cu``, see ``EXTRA_FLAGS``.)
+(``-fmad=false`` for ``bvh.cu``, ``sweep.cu`` and ``nee.cu``, see ``EXTRA_FLAGS``.)
 
     g++ -O3 -shared -fPIC -std=c++17 -o libbvh_builder.so native/bvh_builder.cpp
 """
@@ -34,7 +34,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nlm", "bvh", "sweep")  # CUDA: csrc/<name>.cu
+SOURCES = ("nlm", "bvh", "sweep", "nee")  # CUDA: csrc/<name>.cu
 # host C++, built with the JAX package's flags (tinsel_tpu/native/
 # bvh_native.py) so that both make the same trees
 HOST_SOURCES = {"bvh_builder": _PKG / "native" / "bvh_builder.cpp"}
@@ -43,10 +43,10 @@ FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# per source: the BVH walks and the sweep round every product and sum on
-# its own, so that t equals the plain version's bit for bit (csrc/bvh.cu,
-# csrc/sweep.cu)
-EXTRA_FLAGS = {"bvh": ("-fmad=false",), "sweep": ("-fmad=false",)}
+# per source: the BVH walks, the sweep and NEE round every product and sum
+# on its own, so that they equal their plain versions bit for bit
+# (csrc/bvh.cu, csrc/sweep.cu, csrc/nee.cu)
+EXTRA_FLAGS = {"bvh": ("-fmad=false",), "sweep": ("-fmad=false",), "nee": ("-fmad=false",)}
 
 
 def flags(name: str) -> tuple:

@@ -18,6 +18,11 @@ meshes), accepted when |t - dist| <= ``PORTAL_TOL``, with t as the light
 distance and the emission of the primitive hit, gathered by
 ``_GatherRows`` (one-hot backward). The probe's shadow ray is an
 occlusion query in both forms.
+
+Each sample's steps around its trace are ``ops/nee.py``'s: the light
+sample and shadow ray (kernel K8 on the card), the shading (K9), or their
+plain versions on the CPU. Under autograd on the card the kernels run
+forward and the plain versions give the gradient.
 """
 
 from __future__ import annotations
@@ -26,90 +31,49 @@ import math
 
 import torch
 
-from ..bsdf.disney import bsdf_eval, bsdf_pdf
-from ..core.math import (
-    dot,
-    face_forward,
-    length_sq,
-    safe_normalize,
-    transform_point,
-    transform_vector,
-)
-from ..core.sampling import Prefixed, uniform_sample_sphere, uniform_sample_triangle
-from ..core.search import lower_bound
-from ..scene.model import MESH, SPHERE, SceneFlat, _GatherRows
+from ..core.math import face_forward
+from ..core.sampling import Prefixed
+from ..ops import nee
+from ..ops.nee import PORTAL_TOL, RAY_EPS, LightSample
+from ..scene.model import SceneFlat, _GatherRows
 from ..utils.profiling import traced
 from . import trace
 from .probe import probe_sample_uniforms
 from .trace import prim_transform, trace_any, trace_closest
 
-RAY_EPS = 1e-4  # kRayEpsilon
 K_BSDF_SAMPLES = 1.0
-K_PROBE_SAMPLES = 1.0
-PORTAL_TOL = 1e-2  # kTolerance
+K_PROBE_SAMPLES = 1.0  # kernel K9 adds the probe's sample undivided
 NEE_CLOSEST_SHADOW = False  # True: the reference's closest-hit shadow
 # estimator (module docstring); False: segment occlusion
 
 
 def primitive_sample(scene: SceneFlat, j: int, times, uniforms):
     """Uniform-area sample on light primitive j at per-ray times, from three
-    uniforms ``(u0, u1, u2)``. Returns world-space (pos (R,3), normal (R,3),
-    area (R,)), the area at the interpolated scale. A mesh light's vertices
-    and normals are detached unless ``trace.MESH_VERTEX_GRADS``: its
-    position and size gradients flow through the transform."""
-    ps = scene.prim_static[j]
-    tr = prim_transform(scene, j, times)
-    u0, u1, u2 = uniforms
-    shape = times.shape
-
-    if ps.type == SPHERE:
-        radius = scene.prims.radius[j]
-        d = uniform_sample_sphere(u0, u1)
-        pos = transform_point(tr, d * radius)
-        normal = safe_normalize(pos - tr.p)
-        area = 4.0 * math.pi * (radius * tr.s) ** 2
-    elif ps.type == MESH:
-        h = ps.mesh
-        pool = scene.pool
-        lo = torch.full(shape, h.tri_offset, dtype=torch.int32, device=times.device)
-        tri = lower_bound(pool.tri_cdf, lo, h.num_tris, u0)
-        tri = torch.clamp(tri, h.tri_offset, h.tri_offset + h.num_tris - 1).long()
-        bu, bv = uniform_sample_triangle(u1, u2)
-        bw = 1.0 - bu - bv
-        a, b, c, n0, n1, n2 = trace._vertices(pool, tri)
-        pos_l = bu[..., None] * a + bv[..., None] * b + bw[..., None] * c
-        nrm_l = bu[..., None] * n0 + bv[..., None] * n1 + bw[..., None] * n2
-        pos = transform_point(tr, pos_l)
-        normal = safe_normalize(transform_vector(tr, nrm_l))
-        area = h.area * tr.s * tr.s
-    else:
-        raise ValueError("plane primitives cannot be area lights")
-    return pos, normal, area * torch.ones(shape, dtype=torch.float32, device=times.device)
+    uniforms ``(u0, u1, u2)``: ``ops/nee.py::sample_point`` at the light's
+    transform. Returns world-space (pos (R,3), normal (R,3), area (R,))."""
+    return nee.sample_point(scene, j, prim_transform(scene, j, times), times, uniforms,
+                            trace.MESH_VERTEX_GRADS)
 
 
-def _probe_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
-    """The probe's sample (draw 0): uniforms (0,) and (1,) of ``source``."""
+def _probe_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source, total,
+               fused: bool):
+    """The probe's sample (draw 0): uniforms (0,) and (1,) of ``source``,
+    added to ``total``."""
     shape = tuple(times.shape)
     r1 = source.uniform((0,), shape)
     r2 = source.uniform((1,), shape)
     wi, sky_color, sky_pdf = probe_sample_uniforms(scene.probe, r1, r2)
     shadow_o = p + face_forward(n, wi) * RAY_EPS
     # probe rays only need visibility: any hit, unbounded
-    visible = ~trace_any(scene, shadow_o, wi, times,
-                         torch.full(shape, math.inf, device=p.device))
-    bpdf = bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
-    f = bsdf_eval(mat, eta_i, eta_o, n, wo, wi)
+    occ = trace_any(scene, shadow_o, wi, times, torch.full(shape, math.inf, device=p.device))
     ns = K_PROBE_SAMPLES + K_BSDF_SAMPLES
     c_bsdf = K_BSDF_SAMPLES / ns
     c_sky = K_PROBE_SAMPLES / ns
-    weight = c_sky * sky_pdf / torch.clamp(c_bsdf * bpdf + c_sky * sky_pdf, min=1e-12)
-    contrib = (
-        (weight * torch.abs(dot(wi, n)) / torch.clamp(sky_pdf, min=1e-12))[..., None]
-        * sky_color
-        * f
-    )
-    ok = visible & (bpdf > 0.0) & (sky_pdf > 0.0) & (weight > 0.0)
-    return torch.where(ok[..., None], contrib, torch.zeros_like(contrib)) / K_PROBE_SAMPLES
+    args = (mat, eta_i, eta_o, n, wo, wi, occ, True, sky_pdf, None, sky_color, c_bsdf, c_sky,
+            1e-12)
+    if fused:
+        return nee.shade(*args, total, probe=True)
+    return total + nee.shade_plain(*args, probe=True) / K_PROBE_SAMPLES
 
 
 def _closest_shadow(scene: SceneFlat, shadow_o, wi, times, dist):
@@ -124,10 +88,12 @@ def _closest_shadow(scene: SceneFlat, shadow_o, wi, times, dist):
     return accept, t, emission
 
 
-def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
+def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source, total,
+               fused: bool):
     """One light per lane, picked from the power pmf by the uniform (999,)
     of ``source``; light jj's candidate sample reads (jj, k). Every
-    candidate is evaluated, the shadow ray is traced once."""
+    candidate is sampled, the shadow ray of each lane's pick is traced
+    once, and its contribution added to ``total``."""
     closest = NEE_CLOSEST_SHADOW
     shape = tuple(times.shape)
     li = list(scene.light_indices)
@@ -135,46 +101,32 @@ def _power_nee(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source):
     cdf = torch.cumsum(pmf_l, dim=0)
     u = source.uniform((999,), shape)
     sel = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, len(li) - 1)
-    pos = torch.zeros_like(p)
-    nrm = torch.zeros_like(p)
-    area = torch.zeros(shape, dtype=torch.float32, device=p.device)
+    light_sample = nee.light_sample if fused else nee.light_sample_plain
+    ls = None
     pmf_sel = torch.zeros(shape, dtype=torch.float32, device=p.device)
     emission = torch.zeros_like(p)
     for jj, j in enumerate(li):
         kj = Prefixed(source, jj)
-        pj, nj, aj = primitive_sample(scene, j, times, [kj.uniform((k,), shape) for k in range(3)])
+        lj = light_sample(scene, j, prim_transform(scene, j, times), p, n, times,
+                          [kj.uniform((k,), shape) for k in range(3)], trace.MESH_VERTEX_GRADS)
         m = sel == jj
-        pos = torch.where(m[..., None], pj, pos)
-        nrm = torch.where(m[..., None], nj, nrm)
-        area = torch.where(m, aj, area)
+        ls = lj if ls is None else LightSample(*(torch.where(m[..., None] if a.dim() == 2 else m,
+                                                             a, b) for a, b in zip(lj, ls)))
         pmf_sel = torch.where(m, pmf_l[jj], pmf_sel)
         if not closest:  # the sampled light's emission
             emission = torch.where(m[..., None], scene.materials.emission[j], emission)
 
-    wi_un = pos - p
-    dist = torch.sqrt(torch.clamp(length_sq(wi_un), min=1e-20))
-    wi = wi_un / dist[..., None]
-    shadow_o = p + face_forward(n, wi) * RAY_EPS
     if closest:
-        accept, light_t, emission = _closest_shadow(scene, shadow_o, wi, times, dist)
+        vis, light_t, emission = _closest_shadow(scene, ls.shadow_o, ls.wi, times, ls.dist)
     else:
-        accept = ~trace_any(scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0))
-        light_t = dist
-    nl = torch.abs(dot(nrm, wi))
-    accept = accept & (nl >= 1e-6) & (pmf_sel > 0.0)
+        vis, light_t = trace_any(scene, ls.shadow_o, ls.wi, times, ls.tmax), ls.dist
     # the selection pmf folds into the NEE pdf; one sample per strategy, so
     # the balance-heuristic coefficients (1/2 each) cancel
-    light_pdf = pmf_sel * (light_t * light_t) / torch.clamp(area * nl, min=1e-12)
-    bpdf = bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
-    f = bsdf_eval(mat, eta_i, eta_o, n, wo, wi)
-    accept = accept & (bpdf > 0.0)
-    weight = light_pdf / torch.clamp(bpdf + light_pdf, min=1e-12)
-    contrib = (
-        (weight * torch.abs(dot(wi, n)) / torch.clamp(light_pdf, min=1e-3))[..., None]
-        * f
-        * emission
-    )
-    return torch.where(accept[..., None], contrib, torch.zeros_like(contrib))
+    args = (mat, eta_i, eta_o, n, wo, ls.wi, vis, not closest, light_t, ls.area_nl, emission,
+            1.0, 1.0, 1e-3)
+    if fused:
+        return nee.shade(*args, total, pmf=pmf_sel)
+    return total + nee.shade_plain(*args, pmf=pmf_sel)
 
 
 @traced("lights.nee")
@@ -184,64 +136,46 @@ def sample_lights(scene: SceneFlat, mat, eta_i, eta_o, p, n, wo, times, source,
     ``source`` is the UniformSource of this bounce's NEE draws: the probe
     reads draw 0, the lights the draws after it; in "all" mode light draw d,
     sample s reads (d, s, k). Returns (R, 3) radiance (not multiplied by
-    throughput)."""
+    throughput).
+
+    On CUDA tensors (``ops/nee.py::fuses``) each sample is kernel K8 (the
+    light sample and its shadow ray), the trace, and kernel K9 (the
+    shading, added to the light's sum); on the CPU the same steps run as
+    their plain versions."""
     if light_sampling not in ("all", "power"):
         raise ValueError(f"unknown light_sampling {light_sampling!r}")
+    fused = nee.fuses(p)
     total = torch.zeros_like(p)
     shape = tuple(times.shape)
     draw = 0
     if scene.probe is not None:
-        total = total + _probe_nee(scene, mat, eta_i, eta_o, p, n, wo, times,
-                                   Prefixed(source, draw))
+        total = _probe_nee(scene, mat, eta_i, eta_o, p, n, wo, times, Prefixed(source, draw),
+                           total, fused)
         draw += 1
     if light_sampling == "power" and scene.light_indices:
-        return total + _power_nee(scene, mat, eta_i, eta_o, p, n, wo, times,
-                                  Prefixed(source, draw))
+        return _power_nee(scene, mat, eta_i, eta_o, p, n, wo, times, Prefixed(source, draw),
+                          total, fused)
+    light_sample = nee.light_sample if fused else nee.light_sample_plain
     for j in scene.light_indices:
         n_samples = scene.prim_static[j].light_samples
+        tr = prim_transform(scene, j, times)  # the same for every sample
+        ns_ = n_samples + K_BSDF_SAMPLES
+        c_bsdf = K_BSDF_SAMPLES / ns_
+        c_light = n_samples / ns_
         lj = torch.zeros_like(p)
         for s in range(n_samples):
             ks = Prefixed(source, draw, s)
             uni = [ks.uniform((k,), shape) for k in range(3)]
-            light_pos, light_nrm, area = primitive_sample(scene, j, times, uni)
-
-            wi_un = light_pos - p
-            dist = torch.sqrt(torch.clamp(length_sq(wi_un), min=1e-20))
-            wi = wi_un / dist[..., None]
-
-            shadow_o = p + face_forward(n, wi) * RAY_EPS
+            ls = light_sample(scene, j, tr, p, n, times, uni, trace.MESH_VERTEX_GRADS)
             if NEE_CLOSEST_SHADOW:
-                accept, light_t, emission = _closest_shadow(scene, shadow_o, wi, times, dist)
+                vis, light_t, emission = _closest_shadow(scene, ls.shadow_o, ls.wi, times,
+                                                         ls.dist)
             else:
-                # segment occlusion: anything strictly before the sampled
-                # point (minus the portal tolerance) blocks
-                occ = trace_any(
-                    scene, shadow_o, wi, times, torch.clamp(dist - PORTAL_TOL, min=0.0)
-                )
-                accept = ~occ
-                light_t = dist
-                emission = torch.broadcast_to(scene.materials.emission[j], p.shape)
-
-            nl = torch.abs(dot(light_nrm, wi))
-            accept = accept & (nl >= 1e-6)
-            light_pdf = (light_t * light_t) / torch.clamp(area * nl, min=1e-12)
-
-            bpdf = bsdf_pdf(mat, eta_i, eta_o, n, wo, wi)
-            f = bsdf_eval(mat, eta_i, eta_o, n, wo, wi)
-            accept = accept & (bpdf > 0.0)
-
-            ns_ = n_samples + K_BSDF_SAMPLES
-            c_bsdf = K_BSDF_SAMPLES / ns_
-            c_light = n_samples / ns_
-            weight = c_light * light_pdf / torch.clamp(
-                c_bsdf * bpdf + c_light * light_pdf, min=1e-12
-            )
-            contrib = (
-                (weight * torch.abs(dot(wi, n)) / torch.clamp(light_pdf, min=1e-3))[..., None]
-                * f
-                * emission
-            )
-            lj = lj + torch.where(accept[..., None], contrib, torch.zeros_like(contrib))
+                vis = trace_any(scene, ls.shadow_o, ls.wi, times, ls.tmax)
+                light_t, emission = ls.dist, scene.materials.emission[j]
+            args = (mat, eta_i, eta_o, n, wo, ls.wi, vis, not NEE_CLOSEST_SHADOW, light_t,
+                    ls.area_nl, emission, c_bsdf, c_light, 1e-3)
+            lj = nee.shade(*args, lj) if fused else lj + nee.shade_plain(*args)
         draw += 1
         total = total + lj / max(n_samples, 1)
     return total
