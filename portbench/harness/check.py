@@ -4,10 +4,14 @@ again, from the scene file and the same draws, what the sampled answers
 of the timed path should be, and each number compared is held to its
 limit in ``limits/<cell>.json``:
 
-* ``accumulate``: each sampled pass's increment (the accumulation buffer
-  after the pass less the one before it), over a band of ``rows`` rows
-  drawn from the seed (the whole image where ``rows`` covers it; the
-  filter's reach at a band's inner edges left out);
+* ``accumulate``, ``sharded``: each sampled pass's (step's) increment
+  (the accumulation buffer after it less the one before it), against the
+  reference's unsharded passes of the same draws summed, over a band of
+  ``rows`` rows drawn from the seed (the whole image where ``rows`` covers
+  it; the filter's reach at a band's inner edges left out). With
+  ``"straddle": true`` the band's compared rows lie on both sides of a
+  boundary between the mesh's row bands, with the rows within the filter's
+  reach of it, where two ranks' splats meet in the all-reduce;
 * ``viewer``: each sampled frame's image as handed to ``encode_png``,
   its camera moved and its passes accumulated again from the restart.
 """
@@ -47,32 +51,53 @@ def check_accumulate(ref, kept, cell, seed, dev, overrides=None) -> dict:
     o = scene.options
     pass_fn = ref.make_render_pass(o, auto_spp(cell.traffic["spp_per_pass"], o))
     source = PathUniforms(seed, dev)
-    reach = int(math.floor(o.filter_width)) + 1
+    r = reach(o)
     out = {}
     items = sorted(kept, key=lambda it: it["index"])
-    for item, band in zip(items, bands(cell, seed, o.height, len(items))):
+    for item, band in zip(items, bands(cell, seed, o.height, len(items), r)):
         c0, c1 = 0, o.height
         if band is not None:
-            c0 = band[0] + reach if band[0] > 0 else 0
-            c1 = band[1] - reach if band[1] < o.height else o.height
+            c0 = band[0] + r if band[0] > 0 else 0
+            c1 = band[1] - r if band[1] < o.height else o.height
+        inc_r = None
         with torch.no_grad():
-            inc_r = pass_fn(flat, cam, Prefixed(source, item["index"]), rows=band)
+            for draw in item.get("draws", [(item["index"],)]):
+                inc = pass_fn(flat, cam, Prefixed(source, *draw), rows=band)
+                inc_r = inc if inc_r is None else inc_r + inc
         inc_p = item["after"].double() - item["before"].double()
         _worst(out, image_numbers(inc_p[c0:c1], inc_r[c0:c1]))
     return out
 
 
-def bands(cell, seed: int, height: int, n: int) -> list:
+def reach(options) -> int:
+    """Rows beyond its own that a sample's splat reaches."""
+    return int(math.floor(options.filter_width)) + 1
+
+
+def bands(cell, seed: int, height: int, n: int, reach: int | None = None) -> list:
     """The row bands the check compares, one for each of ``n`` sampled
     passes in pass order, drawn from the seed: ``rows`` rows of
-    ``limits/<cell>.json``, or None (the whole image) where they cover it."""
+    ``limits/<cell>.json``, or None (the whole image) where they cover it.
+    With ``straddle``, each band's compared rows (its rows less ``reach`` at
+    each end) hold the ``reach`` rows on each side of a boundary between the
+    mesh's row bands, drawn from the seed too."""
     rows = int(cell.limits["rows"])
     if rows >= height:
         return [None] * n
     rng = random.Random(seed ^ 0xB0A7)
+    n_rays = int(cell.traffic["mesh"][0]) if cell.limits.get("straddle") else 1
+    edges = [height * i // n_rays for i in range(1, n_rays)]  # the row bands' first rows
+    if edges and reach is None:
+        raise ValueError("a straddling band needs the filter's reach")
     out = []
     for _ in range(n):
-        y0 = rng.randrange(0, height - rows + 1)
+        lo, hi = 0, height - rows
+        if edges:
+            b = edges[rng.randrange(len(edges))]
+            lo, hi = max(lo, b + 2 * reach - rows), min(hi, b - 2 * reach)
+            if lo > hi:
+                raise ValueError(f"{rows} rows cannot straddle row {b} with a reach of {reach}")
+        y0 = rng.randrange(lo, hi + 1)
         out.append((y0, y0 + rows))
     return out
 

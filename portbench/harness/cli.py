@@ -4,15 +4,21 @@ last line of standard output is the result object; the numbers compared
 with the reference, each beside its limit, are the last lines of standard
 error and the result's last key. Without enough CUDA devices, or with JAX
 or the JAX package loaded once the window has closed, it prints no result
-and exits with another code than 0."""
+and exits with another code than 0.
+
+A cell of one card runs in this process on ``cuda:0``. For a cell of
+several, this process is the launcher (``harness/launch.py``): it writes
+the configuration's stand-ins, starts one rank process of the same command
+a card and prints the result that rank 0 hands it."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
-from .faults import FAULTS
+from .faults import SHARDED_FAULTS
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tinsel_tpu")
 
@@ -32,7 +38,7 @@ def parse(argv):
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     p.add_argument("--control", choices=("lowp",), default=None,
                    help="the reference in bfloat16 in the port's place (the control)")
-    p.add_argument("--fault", choices=FAULTS, default=None,
+    p.add_argument("--fault", choices=SHARDED_FAULTS, default=None,
                    help="a fault planted under the timed path (harness/faults.py)")
     return p.parse_args(argv)
 
@@ -49,6 +55,8 @@ def main(argv, t_start: float) -> int:
         print(f"portbench: {args.workload} needs {cell.chips} CUDA device(s); {n} visible",
               file=sys.stderr)
         return 3
+    if cell.chips > 1:
+        return ranks(args, argv, cell, t_start)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -58,6 +66,12 @@ def main(argv, t_start: float) -> int:
 
     result = run(cell, args.seed, args.seconds, bool(args.trace), dev, t_start,
                  control=args.control, fault=args.fault)
+    return report(result)
+
+
+def report(result: dict) -> int:
+    """Print the result (the compared numbers on standard error, then the
+    result line), unless the process holds a module it may not hold."""
     found = loaded_forbidden()
     if found:
         print(f"portbench: the run loaded {found}", file=sys.stderr)
@@ -67,4 +81,47 @@ def main(argv, t_start: float) -> int:
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(result))
+    return 0
+
+
+def launched(cmd: list, world: int, deadline: float, t_start: float) -> int:
+    """The launcher: ``world`` ranks of ``cmd``, then rank 0's result."""
+    from .launch import run_ranks
+
+    result = run_ranks(cmd, world, deadline, t_start)
+    return 5 if result is None else report(result)
+
+
+def ranks(args, argv, cell, t_start: float) -> int:
+    """A cell of several cards: in the launcher, start the ranks; in a rank,
+    run its share on ``cuda:LOCAL_RANK`` and, in rank 0, hand over the
+    result."""
+    import torch
+
+    from . import spec
+    from .launch import deadline_s, rank_env, watch_launcher, write_result
+
+    env = rank_env()
+    if env is None:
+        from .standins import scene_file
+
+        scene_file(cell.config)  # written once, before the ranks read them
+        return launched([sys.executable, str(spec.HERE / "run.py"), *argv], cell.chips,
+                        deadline_s(args.seconds), t_start)
+    watch_launcher(env)
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    from .run_cell import run_rank
+
+    result = run_rank(cell, args.seed, args.seconds, bool(args.trace), dev, env.t_start,
+                      env.rendezvous, control=args.control, fault=args.fault)
+    found = loaded_forbidden()
+    if found:
+        print(f"portbench: rank {os.environ['RANK']} loaded {found}", file=sys.stderr)
+        return 4
+    if result is not None:
+        write_result(env, result)
     return 0

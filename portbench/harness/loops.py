@@ -11,6 +11,13 @@ run's seed, the answers that the check compares.
   ``pathtrace`` frame with guided denoising, in its order and without the
   HTTP server; every ``move_every``-th frame the fly camera steps forward
   and accumulation restarts, as the viewer restarts it.
+* ``sharded``: progressive rendering over several cards, one rank a card,
+  as ``examples/multichip_render.py::run_rank`` renders: a (rays, spp)
+  ``mesh`` of ranks (``make_mesh``), ``sharded_render_fn`` over
+  ``passes_per_step`` passes of ``spp_per_pass`` samples, step k adding
+  the passes drawn under ``Prefixed(source, k, j)``. After each step rank
+  0's clock decides whether the window goes on, and one broadcast tells
+  every rank; rank 0 keeps the sample.
 """
 
 from __future__ import annotations
@@ -83,6 +90,11 @@ class Loop:
 
     def sync(self):
         sync(self.dev)
+
+    def stops(self, due: bool) -> bool:
+        """Whether the window ends after this unit: ``due`` by this
+        process's clock."""
+        return due
 
 
 class Accumulate(Loop):
@@ -192,4 +204,72 @@ def _now(dev) -> float:
     return time.perf_counter()
 
 
-LOOPS = {"accumulate": Accumulate, "viewer": Viewer}
+def pass_options(options, spp: int) -> dict:
+    """The keywords of ``render_pass`` that ``make_render_pass`` binds."""
+    o = options
+    return dict(width=o.width, height=o.height, max_depth=o.max_depth, samples_per_pass=spp,
+                clamp=o.clamp, filter_type=o.filter_type, filter_width=o.filter_width,
+                filter_falloff=o.filter_falloff, mode=o.mode, sampler=o.sampler,
+                rr_depth=o.rr_depth, light_sampling=o.light_sampling)
+
+
+class Sharded(Loop):
+    """One rank's part of the ``sharded`` loop; the process group is
+    joined before. ``band``: ``band(options)`` gives the rows that a side
+    with ``sharded_render_fn(..., band=)`` (the control) renders alone."""
+
+    unit = "step"
+
+    def __init__(self, side, cell, seed, dev, overrides=None, quiet=None, band=None):
+        import torch.distributed as dist
+
+        super().__init__(side, cell, seed, dev, overrides, quiet)
+        o, tr = self.options, self.traffic
+        n_rays, n_spp = (int(n) for n in tr["mesh"])
+        if n_rays * n_spp != dist.get_world_size():
+            raise ValueError(f"a mesh {tr['mesh']} over {dist.get_world_size()} ranks")
+        self.lead = dist.get_rank() == 0
+        self.spp = auto_spp(tr["spp_per_pass"], o)
+        self.passes = int(tr["passes_per_step"])
+        self.paths = o.width * o.height * self.spp * self.passes
+        self.mesh = side.make_mesh(spp_parallel=n_spp)
+        extra = {} if band is None else dict(band=band(o))
+        self.render = side.sharded_render_fn(self.mesh, self.passes, **extra,
+                                             **pass_options(o, self.spp))
+        self.accum = torch.zeros((o.height, o.width, 4), dtype=torch.float32, device=dev)
+        if band is None:  # warm-up: one step of the window's own shape (the control is untimed)
+            self.render(self.flat, self.cam, self.sources(WARM_PASS))
+        self.sync()  # every rank at the window's start
+
+    def sources(self, k: int) -> list:
+        return [Prefixed(self.source, k, j) for j in range(self.passes)]
+
+    def iterate(self):
+        before = self.accum
+        self.accum = before + self.render(self.flat, self.cam, self.sources(self.done))
+        sync(self.dev)
+        if self.lead:
+            self.kept.offer(dict(index=self.done, before=before, after=self.accum,
+                                 draws=[(self.done, j) for j in range(self.passes)]))
+        self.done += 1
+
+    def sync(self):
+        """Every rank here, its work done: the window and the traced steps
+        start together (an all-gather, which the all-reduce readers do not
+        take for a step's exchange)."""
+        import torch.distributed as dist
+
+        sync(self.dev)
+        one = torch.ones(1, device=self.dev)
+        dist.all_gather([torch.empty_like(one) for _ in range(dist.get_world_size())], one)
+        sync(self.dev)
+
+    def stops(self, due: bool) -> bool:
+        import torch.distributed as dist
+
+        flag = torch.tensor([float(due)], device=self.dev)
+        dist.broadcast(flag, 0)
+        return bool(flag.item())
+
+
+LOOPS = {"accumulate": Accumulate, "viewer": Viewer, "sharded": Sharded}

@@ -14,6 +14,7 @@ import torch
 from . import check, trace as tracing
 from .loops import LOOPS, sync
 from .spec import Cell, metric_reader
+from .switches import set_both
 
 
 class Window:
@@ -30,7 +31,7 @@ class Window:
             loop.iterate()
             b = time.perf_counter()
             self.times.append(b - a)
-            if b - t0 >= seconds:
+            if loop.stops(b - t0 >= seconds):
                 break
         self.seconds = b - t0
         self.iterations = len(self.times)
@@ -116,12 +117,9 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def run(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
-        overrides=None, control=None, fault=None) -> dict:
-    """The result of one run (``correct``, ``attempted``, ``failed``,
-    ``metrics``, ``device``, ``breakdown`` when traced, ``checks`` last).
-    ``control="lowp"`` puts the reference computed in bfloat16 in the
-    port's place; ``fault`` breaks the timed path (``harness/faults.py``)."""
+def _side(control, fault):
+    """(side, precision mode, quiet) of a run: the port, or the reference in
+    bfloat16 in its place, broken by ``fault`` where one is given."""
     import reference.side as ref
 
     from . import port
@@ -138,6 +136,56 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
         from .faults import broken
 
         side = broken(side, fault)
+    return side, mode, quiet
+
+
+def _readings(cell, dev, window, trace_rec, setup_s) -> dict:
+    """The cell's end-to-end metrics from the window, or its per-layer
+    metrics from the traced run."""
+    metrics = {}
+    if trace_rec is not None:
+        for m in cell.per_layer:
+            v = metric_reader(m["name"])(trace_rec)
+            if v is not None:
+                metrics[m["name"]] = dict(value=v, unit=m["unit"])
+            elif dev.type == "cuda" and cell.name in m.get("workloads", ()):
+                # a metric that lists this cell has something to read on the
+                # card: reading nothing means the yardstick lost its hook
+                raise RuntimeError(f"per-layer metric {m['name']} read nothing in {cell.name}")
+    else:
+        for m in cell.end_to_end:
+            v = metric_reader(m["name"], "e2e")(window) if m["name"] != "setup_s" else setup_s
+            metrics[m["name"]] = dict(value=v, unit=m["unit"])
+    return metrics
+
+
+def _result(cell, dev, numbers, attempted, metrics, peak, trace_rec) -> dict:
+    checks = check.judged(numbers, cell.limits["limits"])
+    device = dict(platform="gpu" if dev.type == "cuda" else dev.type,
+                  kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                  count=cell.chips, memory_peak_bytes=int(peak))
+    out = dict(correct=check.correct(checks), attempted=attempted,
+               failed=sum(1 for c in checks.values() if not c["value"] <= c["limit"]),
+               metrics=metrics, device=device)
+    if trace_rec is not None:
+        device.update(busy_s=trace_rec.busy_s, window_s=trace_rec.window_s)
+        out["breakdown"] = trace_rec.breakdown()
+    out["checks"] = checks
+    return out
+
+
+def run(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
+        overrides=None, control=None, fault=None) -> dict:
+    """The result of one run (``correct``, ``attempted``, ``failed``,
+    ``metrics``, ``device``, ``breakdown`` when traced, ``checks`` last).
+    ``control="lowp"`` puts the reference computed in bfloat16 in the
+    port's place; ``fault`` breaks the timed path (``harness/faults.py``)."""
+    import reference.side as ref
+
+    from . import port
+
+    set_both(port, ref, cell.config.get("switches"))
+    side, mode, quiet = _side(control, fault)
     kind = cell.traffic["loop"]
     extra = {}
     if control is not None and kind == "accumulate":
@@ -168,33 +216,71 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
 
     if trace_rec is not None:
         kernel_bounds(trace_rec, cell, dev, overrides)
-        metrics = {}
-        for m in cell.per_layer:
-            v = metric_reader(m["name"])(trace_rec)
-            if v is not None:
-                metrics[m["name"]] = dict(value=v, unit=m["unit"])
-            elif dev.type == "cuda" and cell.name in m.get("workloads", ()):
-                # a metric that lists this cell has something to read on the
-                # card: reading nothing means the yardstick lost its hook
-                raise RuntimeError(f"per-layer metric {m['name']} read nothing in {cell.name}")
-    else:
-        metrics = {}
-        for m in cell.end_to_end:
-            v = metric_reader(m["name"], "e2e")(window) if m["name"] != "setup_s" else setup_s
-            metrics[m["name"]] = dict(value=v, unit=m["unit"])
+    metrics = _readings(cell, dev, window, trace_rec, setup_s)
     _free(dev)
 
     fn = check.check_accumulate if kind == "accumulate" else check.check_viewer
     numbers = fn(ref, kept, cell, seed, dev, overrides)
-    checks = check.judged(numbers, cell.limits["limits"])
-    device = dict(platform="gpu" if dev.type == "cuda" else dev.type,
-                  kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-                  count=cell.chips, memory_peak_bytes=int(peak))
-    out = dict(correct=check.correct(checks), attempted=attempted,
-               failed=sum(1 for c in checks.values() if not c["value"] <= c["limit"]),
-               metrics=metrics, device=device)
-    if trace_rec is not None:
-        device.update(busy_s=trace_rec.busy_s, window_s=trace_rec.window_s)
-        out["breakdown"] = trace_rec.breakdown()
-    out["checks"] = checks
-    return out
+    return _result(cell, dev, numbers, attempted, metrics, peak, trace_rec)
+
+
+def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
+             rendezvous: str, overrides=None, control=None, fault=None) -> dict | None:
+    """One rank of a run of a cell of several cards (the ``sharded`` loop):
+    join the process group (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` from
+    the environment) at ``rendezvous`` over the traffic's ``backend``, set
+    up, run the window (or the traced steps) in step with the other ranks,
+    gather their peaks (and traces) to rank 0 and leave the group; then
+    rank 0 checks its sample against the reference and returns the result,
+    the other ranks None. ``t_start``: the launcher's start, so ``setup_s``
+    runs from it to the window's start on every rank."""
+    import torch.distributed as dist
+
+    import reference.side as ref
+
+    from . import port
+
+    set_both(port, ref, cell.config.get("switches"))
+    side, mode, quiet = _side(control, fault)
+    port.init_distributed(rendezvous, backend=cell.traffic["backend"])
+    try:
+        extra = {}
+        if control is not None:
+            # as in run(): the control renders only the rows the check compares
+            extra["band"] = lambda o: check.bands(cell, seed, o.height, 1, check.reach(o))[0]
+        cuda = dev.type == "cuda"
+        with mode:
+            loop = LOOPS[cell.traffic["loop"]](side, cell, seed, dev, overrides, quiet, **extra)
+            setup_s = time.perf_counter() - t_start
+            setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            window = mine = None
+            if trace:
+                t = tracing.Trace(loop.unit)
+                tracing.profiled(loop, int(cell.traffic["trace_iterations"]), t,
+                                 port.launch_counts)
+                mine = tracing.rank_summary(t)
+            else:
+                window = Window(loop, seconds)
+        window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, dict(peak=max(setup_peak, window_peak),
+                                              window_peak=window_peak, trace=mine))
+        kept = loop.kept.items
+        attempted = window.iterations if window else int(cell.traffic["trace_iterations"])
+        lead = loop.lead
+        del loop
+        _free(dev)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if not lead:
+        return None
+    trace_rec = tracing.RankTraces([g["trace"] for g in gathered]) if trace else None
+    if window is not None:
+        window.peak_bytes = max(g["window_peak"] for g in gathered)
+    metrics = _readings(cell, dev, window, trace_rec, setup_s)
+    numbers = check.check_accumulate(ref, kept, cell, seed, dev, overrides)
+    return _result(cell, dev, numbers, attempted, metrics, max(g["peak"] for g in gathered),
+                   trace_rec)

@@ -23,7 +23,8 @@ import time
 
 import torch
 
-OWN_KERNEL = re.compile(r"(sweep_(closest|any)|bvh_\w+|nlm_(filter|guided))_kernel")
+OWN_KERNEL = re.compile(
+    r"(sweep_(closest|any)|bvh_\w+|nlm_(filter|guided)|nee_(light|shade))_kernel")
 SPIN_CYCLES = 200_000  # torch.cuda._sleep: about 0.1 ms of the card
 RUNTIME = re.compile(r"^(cuda|cu[A-Z])")  # runtime and driver API records
 
@@ -46,11 +47,15 @@ class Trace:
         self.captured = None  # the timed launches, until their bounds are counted
         self.post_ms = []  # the viewer's host spans after the step, per frame
 
-    def breakdown(self) -> dict:
+    def op_seconds(self) -> dict:
+        """Device seconds by operation name (cut to 96 characters)."""
         ops = {}
         for a, b, name in self.device:
             ops[name[:96]] = ops.get(name[:96], 0.0) + (b - a) / 1e9
-        top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+        return ops
+
+    def breakdown(self) -> dict:
+        top = sorted(self.op_seconds().items(), key=lambda kv: -kv[1])[:10]
         gaps = sorted(self.gaps.items(), key=lambda kv: -kv[1])[:10]
         return dict(device_ops=[[k, v] for k, v in top], idle_gaps=[[k, v] for k, v in gaps])
 
@@ -206,3 +211,47 @@ def kernel_spans(module, keep):
     finally:
         module._entry, module._launch = orig_entry, orig_launch
         torch.cuda.synchronize()
+
+
+ALLREDUCE = re.compile(r"nccl\w*AllReduce", re.IGNORECASE)  # NCCL's all-reduce kernels
+
+
+def rank_summary(t: Trace) -> dict:
+    """One rank's traced steps, reduced to what rank 0 gathers: the steps,
+    the window and busy seconds, the device ms of each NCCL all-reduce
+    kernel in the order they ran (one a step), and seconds by device op and
+    by the host label of the idle gaps."""
+    return dict(iterations=t.iterations, window_s=t.window_s, busy_s=t.busy_s,
+                allreduce_ms=[(b - a) / 1e6 for a, b, name in t.device
+                              if ALLREDUCE.search(name)],
+                ops=t.op_seconds(), gaps=dict(t.gaps))
+
+
+class RankTraces:
+    """What the metric readers of a cell of several cards read: each rank's
+    ``rank_summary``, in rank order."""
+
+    kind = "step"
+
+    def __init__(self, ranks: list):
+        self.ranks = ranks
+        self.iterations = ranks[0]["iterations"]
+        self.busy_s = sum(r["busy_s"] for r in ranks) / len(ranks)
+        self.window_s = sum(r["window_s"] for r in ranks) / len(ranks)
+
+    def allreduce_steps(self):
+        """[rank][step] device ms of the all-reduce kernels, where every
+        rank ran one a step; else None."""
+        ar = [r["allreduce_ms"] for r in self.ranks]
+        return ar if all(len(a) == self.iterations > 0 for a in ar) else None
+
+    def breakdown(self) -> dict:
+        """The device ops and idle gaps that took most time, averaged over
+        the ranks."""
+        def top(key):
+            acc = {}
+            for r in self.ranks:
+                for k, v in r[key].items():
+                    acc[k] = acc.get(k, 0.0) + v / len(self.ranks)
+            return [[k, v] for k, v in sorted(acc.items(), key=lambda kv: -kv[1])[:10]]
+        return dict(device_ops=top("ops"), idle_gaps=top("gaps"))

@@ -76,9 +76,11 @@ def import_mesh(path: str, cache: bool = True) -> Mesh:
     dt = (time.perf_counter() - t0) * 1000.0
     print(f"Imported mesh {path} ({len(mesh.indices)} tris) in {dt:.1f}ms")
     if cache:
+        tmp = f"{cache_path}.{os.getpid()}.tmp.npz"
         try:
             os.makedirs(_CACHE_DIR, exist_ok=True)
-            save_mesh_cache(cache_path, mesh)
+            save_mesh_cache(tmp, mesh)
+            os.replace(tmp, cache_path)  # ranks that import at once never read half a file
         except OSError:
             pass
     return mesh

@@ -26,6 +26,7 @@ CPU = torch.device("cpu")
 SMALL = dict(width=16, height=16)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+ONE_CARD = [w["name"] for w in BENCH["workloads"] if w["chips"] == 1]
 
 
 def small(cell_name: str, **traffic):
@@ -94,10 +95,11 @@ def test_loop_runs(traffic):
     assert loop.done == 3 and loop.kept.items
 
 
-@pytest.mark.parametrize("cell_name", [w["name"] for w in BENCH["workloads"]])
+@pytest.mark.parametrize("cell_name", ONE_CARD)
 def test_reference_agrees_with_port_on_cpu(cell_name, tmp_path, monkeypatch):
     """At equal draws through the frozen PathUniforms copy, the port's CPU
-    path (its plain versions) and the reference read no gap."""
+    path (its plain versions) and the reference read no gap (the cells of
+    several cards: ``test_portbench_sharded.py``)."""
     if cell_name.startswith("ajaxenv"):
         cell, path = small_ajaxenv(tmp_path)
         monkeypatch.setattr("harness.loops.scene_file", lambda cfg: path)
@@ -172,6 +174,21 @@ def test_work_functions_count_as_chip_smoke():
     assert math.isclose(work.walk_bound_ms(plain_walk.intersect_mesh, args, 8), want)
 
 
+def test_own_kernels_are_counted_by_their_wrappers():
+    """Each kernel of the port whose wrapper keeps a launch count is told
+    apart from the profiler's other kernel records by its name."""
+    from harness import port
+    from harness.trace import OWN_KERNEL
+
+    counts = port.launch_counts()
+    assert {"sweep_closest", "bvh_any", "nlm_guided", "nee_light", "nee_shade"} <= set(counts)
+    for name in ("_anonymous_namespace_::nee_shade_kernel_ShadeArgs_",
+                 "(anonymous namespace)::nee_light_kernel(LightArgs)",
+                 "void (anonymous namespace)::sweep_closest_kernel<false>(float const*)"):
+        assert OWN_KERNEL.search(name), name
+    assert not OWN_KERNEL.search("void at::native::vectorized_elementwise_kernel<4>")
+
+
 def _mesh_pool(mesh):
     """(pool, handle) of one mesh, flattened by the reference."""
     from reference.tinsel_ref.scene.model import MESH, Primitive, Scene
@@ -195,9 +212,11 @@ def test_benchmark_json_keeps_the_contract():
         assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
         assert "assumed" in cfg
     cells = {w["name"]: w for w in BENCH["workloads"]}
-    assert list(cells) == ["cornell.render", "ajaxenv.render", "cornell.viewer"]
+    assert list(cells) == ["cornell.render", "ajaxenv.render", "cornell.viewer",
+                           "ajaxenv.render.4gpu"]
+    assert sum(w["chips"] == 4 for w in cells.values()) <= max(1, len(cells) // 4)
     for w in cells.values():
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert (HERE / "traffic" / f"{w['traffic']}.json").exists()
         assert (HERE / "limits" / f"{w['name']}.json").exists()
         assert len(w["why"]) <= 200
