@@ -45,18 +45,15 @@ def parse(argv):
 
 def main(argv, t_start: float) -> int:
     args = parse(argv)
-    import torch
-
     from . import spec
 
     cell = spec.cell(args.workload)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        print(f"portbench: {args.workload} needs {cell.chips} CUDA device(s); {n} visible",
-              file=sys.stderr)
-        return 3
     if cell.chips > 1:
         return ranks(args, argv, cell, t_start)
+    import torch
+
+    if not enough_cards(torch, cell):
+        return 3
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,6 +64,16 @@ def main(argv, t_start: float) -> int:
     result = run(cell, args.seed, args.seconds, bool(args.trace), dev, t_start,
                  control=args.control, fault=args.fault)
     return report(result)
+
+
+def enough_cards(torch, cell) -> bool:
+    """Whether CUDA shows the cards the cell asks for; says so where not."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= cell.chips:
+        return True
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    print(f"portbench: {cell.name} needs {cell.chips} CUDA device(s); {n} visible",
+          file=sys.stderr)
+    return False
 
 
 def report(result: dict) -> int:
@@ -95,29 +102,40 @@ def launched(cmd: list, world: int, deadline: float, t_start: float) -> int:
 def ranks(args, argv, cell, t_start: float) -> int:
     """A cell of several cards: in the launcher, start the ranks; in a rank,
     run its share on ``cuda:LOCAL_RANK`` and, in rank 0, hand over the
+    result. The launcher neither imports torch nor asks CUDA: each rank
+    looks for the cards, and a rank that finds too few ends the run with no
     result."""
-    import torch
+    import time
 
     from . import spec
-    from .launch import deadline_s, rank_env, watch_launcher, write_result
+    from .launch import SetupMarks, deadline_s, rank_env, watch_launcher, write_result
 
     env = rank_env()
     if env is None:
         from .standins import scene_file
 
         scene_file(cell.config)  # written once, before the ranks read them
+        print(f"portbench: launcher wrote the stand-ins at {time.perf_counter() - t_start:.3f} s",
+              file=sys.stderr)
         return launched([sys.executable, str(spec.HERE / "run.py"), *argv], cell.chips,
                         deadline_s(args.seconds), t_start)
+    marks = SetupMarks(env.t_start)
+    marks("started", t_start)
     watch_launcher(env)
+    import torch
+
+    if not enough_cards(torch, cell):
+        return 3
     dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)
+    marks("torch and CUDA")
     from .run_cell import run_rank
 
     result = run_rank(cell, args.seed, args.seconds, bool(args.trace), dev, env.t_start,
-                      env.rendezvous, control=args.control, fault=args.fault)
+                      env.rendezvous, control=args.control, fault=args.fault, marks=marks)
     found = loaded_forbidden()
     if found:
         print(f"portbench: rank {os.environ['RANK']} loaded {found}", file=sys.stderr)

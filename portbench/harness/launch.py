@@ -47,6 +47,34 @@ def rank_env() -> RankEnv | None:
                    float(os.environ["PORTBENCH_T0"]), int(os.environ["PORTBENCH_LAUNCHER"]))
 
 
+class SetupMarks:
+    """The ends of a rank's set-up phases, each in seconds from the
+    launcher's start (the shared monotonic clock): a diagnostic written to
+    standard error, not a metric."""
+
+    def __init__(self, t0: float):
+        self.t0, self.at = t0, []
+
+    def __call__(self, phase: str, at: float | None = None):
+        self.at.append((phase, (time.perf_counter() if at is None else at) - self.t0))
+
+    def line(self, rank: int) -> str:
+        return (f"portbench: rank {rank} set-up, each phase's end in s from the launcher's "
+                "start: " + ", ".join(f"{p} {t:.3f}" for p, t in self.at))
+
+
+def window_lines(rank: int, times: list, dispatch: list, usage) -> list:
+    """A rank's window as diagnostic lines for standard error: each step's
+    wall seconds, the host seconds the rank took to dispatch it (before it
+    waits for its card and the all-reduce), and its process's CPU seconds
+    over the window (``usage``: the ``resource.getrusage`` pair around it)."""
+    u0, u1 = usage
+    return [f"portbench: rank {rank} step s: " + " ".join(f"{t:.4f}" for t in times),
+            f"portbench: rank {rank} dispatch s: " + " ".join(f"{t:.4f}" for t in dispatch),
+            f"portbench: rank {rank} window CPU: user {u1.ru_utime - u0.ru_utime:.2f} s, "
+            f"system {u1.ru_stime - u0.ru_stime:.2f} s"]
+
+
 def deadline_s(seconds: float) -> float:
     return SETUP_ALLOWANCE_S + float(seconds) + CHECK_ALLOWANCE_S
 
@@ -99,6 +127,8 @@ def run_ranks(cmd: list, world: int, deadline: float, t_start: float) -> dict | 
                        PORTBENCH_T0=repr(float(t_start)), PORTBENCH_LAUNCHER=str(os.getpid()))
             procs.append(subprocess.Popen(cmd, env=env, stdout=sys.stderr,
                                           start_new_session=True))
+        print(f"portbench: launcher started {world} ranks at "
+              f"{time.perf_counter() - t_start:.3f} s", file=sys.stderr)
         end = time.monotonic() + deadline
         while True:
             codes = [p.poll() for p in procs]

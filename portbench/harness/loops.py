@@ -220,10 +220,13 @@ class Sharded(Loop):
 
     unit = "step"
 
-    def __init__(self, side, cell, seed, dev, overrides=None, quiet=None, band=None):
+    def __init__(self, side, cell, seed, dev, overrides=None, quiet=None, band=None,
+                 marks=None):
         import torch.distributed as dist
 
+        marks = marks or (lambda phase: None)
         super().__init__(side, cell, seed, dev, overrides, quiet)
+        marks("scene")
         o, tr = self.options, self.traffic
         n_rays, n_spp = (int(n) for n in tr["mesh"])
         if n_rays * n_spp != dist.get_world_size():
@@ -237,16 +240,23 @@ class Sharded(Loop):
         self.render = side.sharded_render_fn(self.mesh, self.passes, **extra,
                                              **pass_options(o, self.spp))
         self.accum = torch.zeros((o.height, o.width, 4), dtype=torch.float32, device=dev)
+        self.dispatch = []  # each step's dispatch seconds, for the diagnostics
         if band is None:  # warm-up: one step of the window's own shape (the control is untimed)
             self.render(self.flat, self.cam, self.sources(WARM_PASS))
+            sync(dev)
+            marks("warm-up step")
         self.sync()  # every rank at the window's start
+        marks("barrier")
 
     def sources(self, k: int) -> list:
         return [Prefixed(self.source, k, j) for j in range(self.passes)]
 
     def iterate(self):
         before = self.accum
-        self.accum = before + self.render(self.flat, self.cam, self.sources(self.done))
+        a = time.perf_counter()
+        inc = self.render(self.flat, self.cam, self.sources(self.done))
+        self.dispatch.append(time.perf_counter() - a)
+        self.accum = before + inc
         sync(self.dev)
         if self.lead:
             self.kept.offer(dict(index=self.done, before=before, after=self.accum,

@@ -47,11 +47,15 @@ def _keep_walk(kernel, i):
     return i < 2 or i % (16 if kernel == "bvh_closest" else 128) == 0
 
 
+def _keep_rounds(kernel, i):
+    return True  # a launch's bound reads its sizes alone
+
+
 def traced(loop, port, tr: dict) -> tracing.Trace:
     """The traced run: a profiled segment, then for the renderer passes with
-    the trace calls' spans and a pass with its K5 / K3 / K4 launches timed
-    one by one (their inputs kept for the bounds), for the viewer frames
-    with their host spans after the step."""
+    the trace calls' spans and a pass with its K5 / K3 / K4 / K6 launches
+    timed one by one (their inputs kept for the bounds), for the viewer
+    frames with their host spans after the step."""
     t = tracing.Trace(loop.unit)
     tracing.profiled(loop, int(tr["trace_iterations"]), t, port.launch_counts)
     if loop.unit == "pass" and loop.dev.type == "cuda":  # events need a card
@@ -59,9 +63,10 @@ def traced(loop, port, tr: dict) -> tracing.Trace:
             with tracing.trace_spans(port, t):
                 tracing.pass_span(loop, t)
         with tracing.kernel_spans(port.ops_sweep, _keep_sweep) as sweeps, \
-                tracing.kernel_spans(port.ops_bvh, _keep_walk) as walks:
+                tracing.kernel_spans(port.ops_bvh, _keep_walk) as walks, \
+                tracing.round_spans(port.ops_instances, _keep_rounds) as rounds:
             loop.iterate()
-        t.captured = dict(sweep=sweeps, walk=walks)
+        t.captured = dict(sweep=sweeps, walk=walks, rounds=rounds)
     if loop.unit == "frame":
         loop.post = []
         for _ in range(int(tr["trace_iterations"])):
@@ -72,9 +77,9 @@ def traced(loop, port, tr: dict) -> tracing.Trace:
 
 
 def kernel_bounds(t: tracing.Trace, cell, dev, overrides=None):
-    """(bound ms, device ms) of each kept K5 / K3 / K4 launch, the bound
-    counted by the reference's plain sweep and walk on the launch's own
-    inputs (``harness/work.py``)."""
+    """(bound ms, device ms) of each kept K5 / K3 / K4 / K6 launch, the
+    bound counted by the reference's plain sweep and walk on the launch's
+    own inputs, or, for K6, from its sizes (``harness/work.py``)."""
     import reference.side as ref
     from reference.tinsel_ref.accel import sweep as plain_sweep
     from reference.tinsel_ref.accel import traverse as plain_walk
@@ -107,6 +112,11 @@ def kernel_bounds(t: tracing.Trace, cell, dev, overrides=None):
         fn = plain_walk.intersect_mesh if closest else plain_walk.intersect_mesh_any
         b = work.walk_bound_ms(fn, args[:7], 8 if closest else 1)
         t.kernel_calls.setdefault("walk", []).append((b, e0.elapsed_time(e1)))
+    for kernel, sizes, (e0, e1) in calls["rounds"]:
+        if sizes is None:
+            continue
+        b = work.rounds_bound_ms(closest=kernel == "rounds_closest", **sizes)
+        t.kernel_calls.setdefault("rounds", []).append((b, e0.elapsed_time(e1)))
     t.captured = None
 
 
@@ -225,7 +235,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
 
 
 def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
-             rendezvous: str, overrides=None, control=None, fault=None) -> dict | None:
+             rendezvous: str, overrides=None, control=None, fault=None,
+             marks=None) -> dict | None:
     """One rank of a run of a cell of several cards (the ``sharded`` loop):
     join the process group (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` from
     the environment) at ``rendezvous`` over the traffic's ``backend``, set
@@ -233,18 +244,28 @@ def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: f
     gather their peaks (and traces) to rank 0 and leave the group; then
     rank 0 checks its sample against the reference and returns the result,
     the other ranks None. ``t_start``: the launcher's start, so ``setup_s``
-    runs from it to the window's start on every rank."""
+    runs from it to the window's start on every rank. ``marks``: the rank's
+    ``SetupMarks`` so far; its set-up phases and, after the window, each
+    step's times go to standard error (diagnostics, not metrics)."""
+    import resource
+    import sys
+
     import torch.distributed as dist
 
     import reference.side as ref
 
     from . import port
+    from .launch import SetupMarks, window_lines
 
+    marks = marks or SetupMarks(t_start)
     set_both(port, ref, cell.config.get("switches"))
     side, mode, quiet = _side(control, fault)
+    marks("imports")
     port.init_distributed(rendezvous, backend=cell.traffic["backend"])
+    rank = dist.get_rank()
+    marks("process group")
     try:
-        extra = {}
+        extra = dict(marks=marks)
         if control is not None:
             # as in run(): the control renders only the rows the check compares
             extra["band"] = lambda o: check.bands(cell, seed, o.height, 1, check.reach(o))[0]
@@ -252,6 +273,7 @@ def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: f
         with mode:
             loop = LOOPS[cell.traffic["loop"]](side, cell, seed, dev, overrides, quiet, **extra)
             setup_s = time.perf_counter() - t_start
+            sys.stderr.write(marks.line(rank) + "\n")
             setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
             if cuda:
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -262,7 +284,12 @@ def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, dev, t_start: f
                                  port.launch_counts)
                 mine = tracing.rank_summary(t)
             else:
+                usage = [resource.getrusage(resource.RUSAGE_SELF)]
                 window = Window(loop, seconds)
+                usage.append(resource.getrusage(resource.RUSAGE_SELF))
+                lines = window_lines(rank, window.times, loop.dispatch, usage)
+                sys.stderr.write("".join(f"{line}\n" for line in lines))  # one write a rank
+                sys.stderr.flush()
         window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
         gathered = [None] * dist.get_world_size()
         dist.all_gather_object(gathered, dict(peak=max(setup_peak, window_peak),

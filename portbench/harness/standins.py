@@ -96,30 +96,48 @@ def write_rle_hdr(path, img):
 def scene_file(config: dict, data_dir: Path | None = None) -> str:
     """The scene file this configuration runs: the repository's file, or,
     where it has ``standins``, a copy that names the stand-ins (written
-    once into ``data_dir``, by default ``portbench/_data/<config>/``)."""
+    once into ``data_dir``, by default ``portbench/_data/<config>/``).
+
+    ``standins`` holds the ``seed`` of the sky and any of: ``mesh``, a mesh
+    stand-in for a path the scene names exactly once; ``meshes``, a list of
+    mesh stand-ins, each for every occurrence of its path (at least one:
+    a mesh that many primitives instance); ``probe``, a sky stand-in for a
+    path named once. The stamp ``standins.json`` records them as given, so
+    the files are written again only when the configuration changes."""
     path = ROOT / config["scene"]
     st = config.get("standins")
     if not st:
         return str(path)
-    from reference.tinsel_ref.scene.loaders.mesh_io import save_ply
-
     d = Path(data_dir or HERE / "_data" / config["name"])
     d.mkdir(parents=True, exist_ok=True)
     stamp = d / "standins.json"
     want = json.dumps(st, sort_keys=True)
     tin = d / path.name
     if not (stamp.exists() and stamp.read_text() == want and tin.exists()):
-        ply = d / st["mesh"]["file"]
-        pos, idx = perlin_sphere(int(st["mesh"]["detail"]))
-        save_ply(str(ply), pos, idx)
-        hdr = d / st["probe"]["file"]
-        write_rle_hdr(hdr, probe_image(int(st["probe"]["width"]), int(st["probe"]["height"]),
-                                       int(st["seed"])))
+        from reference.tinsel_ref.scene.loaders.mesh_io import save_ply
+
         text = path.read_text()
-        for old, new in ((st["mesh"]["replaces"], ply), (st["probe"]["replaces"], hdr)):
-            if text.count(old) != 1:
-                raise ValueError(f"{path} does not name {old} once")
-            text = text.replace(old, str(new))
+        meshes = [(st["mesh"], False)] if "mesh" in st else []
+        meshes += [(m, True) for m in st.get("meshes", [])]
+        for m, every in meshes:
+            ply = d / m["file"]
+            save_ply(str(ply), *perlin_sphere(int(m["detail"])))
+            text = _replaced(text, path, m["replaces"], ply, every)
+        if "probe" in st:
+            hdr = d / st["probe"]["file"]
+            write_rle_hdr(hdr, probe_image(int(st["probe"]["width"]),
+                                           int(st["probe"]["height"]), int(st["seed"])))
+            text = _replaced(text, path, st["probe"]["replaces"], hdr, every=False)
         tin.write_text(text)
         stamp.write_text(want)
     return str(tin)
+
+
+def _replaced(text: str, path, old: str, new, every: bool) -> str:
+    """``text`` with ``old`` replaced by ``new``: named once, or, where
+    ``every``, at least once."""
+    n = text.count(old)
+    if n != 1 and not (every and n >= 1):
+        raise ValueError(f"{path} names {old} {n} times; its stand-in replaces "
+                         + ("every occurrence, at least one" if every else "exactly one"))
+    return text.replace(old, str(new))

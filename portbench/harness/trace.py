@@ -9,9 +9,9 @@ calls into the port (no span inside the program yet):
   the profiler can miss a lone ctypes launch);
 * for the renderer: CUDA-event spans around the integrator's calls into
   the trace layer (``integrator.trace_closest``, ``lights.trace_any``) and
-  around each pass, in passes of their own; and the port's K5 (and K3/K4)
-  launches timed one by one by events behind a spin kernel, their inputs
-  kept for sampled calls so that the work they did can be counted.
+  around each pass, in passes of their own; and the port's K5, K3/K4 and
+  K6c/K6a launches timed one by one by events behind a spin kernel, their
+  inputs kept for sampled calls so that the work they did can be counted.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class Trace:
         self.gaps = {}  # host label -> idle seconds
         self.trace_ms = []  # event spans of the trace calls
         self.pass_ms = []  # event spans of the passes that hold them
-        self.kernel_calls = {}  # "sweep" / "walk" -> [(bound ms, device ms)]
+        self.kernel_calls = {}  # "sweep" / "walk" / "rounds" -> [(bound ms, device ms)]
         self.captured = None  # the timed launches, until their bounds are counted
         self.post_ms = []  # the viewer's host spans after the step, per frame
 
@@ -128,9 +128,10 @@ def profiled(loop, iterations: int, trace: Trace, counts):
 
 @contextlib.contextmanager
 def trace_spans(port, trace: Trace):
-    """CUDA events around ``integrator.trace_closest`` and
-    ``lights.trace_any`` while active; ``trace.trace_ms`` gets their spans
-    on exit."""
+    """CUDA events around ``integrator.trace_closest``, ``lights.trace_any``
+    and ``lights.trace_closest`` (the shadow rays under
+    ``NEE_CLOSEST_SHADOW``) while active; ``trace.trace_ms`` gets their
+    spans on exit."""
     pairs = []
 
     def timed(fn):
@@ -143,13 +144,14 @@ def trace_spans(port, trace: Trace):
             return out
         return wrapper
 
-    orig = (port.integrator.trace_closest, port.lights.trace_any)
+    orig = (port.integrator.trace_closest, port.lights.trace_any, port.lights.trace_closest)
     port.integrator.trace_closest = timed(orig[0])
     port.lights.trace_any = timed(orig[1])
+    port.lights.trace_closest = timed(orig[2])
     try:
         yield
     finally:
-        port.integrator.trace_closest, port.lights.trace_any = orig
+        port.integrator.trace_closest, port.lights.trace_any, port.lights.trace_closest = orig
     torch.cuda.synchronize()
     trace.trace_ms.append(sum(a.elapsed_time(b) for a, b in pairs))
 
@@ -163,6 +165,42 @@ def pass_span(loop, trace: Trace):
     e1.record()
     e1.synchronize()
     trace.pass_ms.append(e0.elapsed_time(e1))
+
+
+def _timed_entry(orig_entry, calls: list, pending: list):
+    """A module's ``_entry`` whose kernels run between CUDA events, a spin
+    kernel before each so that the card is busy when the host reaches the
+    launch; each launch that returns 0 adds (kernel, kept, (start, end)) to
+    ``calls``, ``kept`` popped from ``pending`` where the launch's caller
+    left it."""
+    def entry(kernel):
+        fn = orig_entry(kernel)
+
+        def timed(*a):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            for e in (start, end):
+                e.record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            err = fn(*a)
+            end.record()
+            name, kept = pending.pop() if pending else (kernel, None)
+            if err == 0:
+                calls.append((name, kept, (start, end)))
+            return err
+        return timed
+    return entry
+
+
+def _marked(pending: list, mark, fn, *args):
+    """``fn(*args)`` with ``mark`` pending for its launch; the mark goes
+    where no launch took it (no rays)."""
+    pending.append(mark)
+    try:
+        return fn(*args)
+    finally:
+        if pending and pending[-1] is mark:
+            pending.pop()
 
 
 @contextlib.contextmanager
@@ -180,36 +218,49 @@ def kernel_spans(module, keep):
         seen[kernel] = i + 1
         kept = tuple(x.clone() if torch.is_tensor(x) else x for x in args) if keep(kernel, i) \
             else None
-        mark = (kernel, kept)
-        pending.append(mark)
-        try:
-            return orig_launch(kernel, *args)
-        finally:
-            if pending and pending[-1] is mark:  # no launch (no rays)
-                pending.pop()
+        return _marked(pending, (kernel, kept), orig_launch, kernel, *args)
 
-    def entry(kernel):
-        fn = orig_entry(kernel)
-
-        def timed(*a):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            for e in (start, end):
-                e.record()
-            torch.cuda._sleep(SPIN_CYCLES)
-            start.record()
-            err = fn(*a)
-            end.record()
-            name, kept = pending.pop() if pending else (kernel, None)
-            if err == 0:
-                calls.append((name, kept, (start, end)))
-            return err
-        return timed
-
-    module._entry, module._launch = entry, launch
+    module._entry, module._launch = _timed_entry(orig_entry, calls, pending), launch
     try:
         yield calls
     finally:
         module._entry, module._launch = orig_entry, orig_launch
+        torch.cuda.synchronize()
+
+
+ROUNDS = {"rounds_closest": "rounds_closest_cuda", "rounds_any": "rounds_any_cuda"}
+
+
+@contextlib.contextmanager
+def round_spans(module, keep):
+    """Each launch of the shortlist rounds (``ops/instances.py``: K6c
+    ``rounds_closest``, K6a ``rounds_any``) between CUDA events, as
+    ``kernel_spans`` times them; ``keep(kernel, index)`` says whether to
+    keep a launch's inputs, as the bound reads them: its rays, its
+    instances and whether the batch moves. Yields the list of (kernel,
+    inputs or None, (start, end)) filled as the launches come."""
+    calls, seen, pending = [], {}, []
+    orig = {k: getattr(module, f) for k, f in ROUNDS.items()}
+    orig_entry = module._entry
+
+    def hooked(kernel):
+        def launch(scene, tab, origins, *rest):
+            i = seen.get(kernel, 0)
+            seen[kernel] = i + 1
+            kept = dict(rays=origins.shape[0], instances=len(tab.prims),
+                        motion=bool(tab.motion)) if keep(kernel, i) else None
+            return _marked(pending, (kernel, kept), orig[kernel], scene, tab, origins, *rest)
+        return launch
+
+    for k, f in ROUNDS.items():
+        setattr(module, f, hooked(k))
+    module._entry = _timed_entry(orig_entry, calls, pending)
+    try:
+        yield calls
+    finally:
+        for k, f in ROUNDS.items():
+            setattr(module, f, orig[k])
+        module._entry = orig_entry
         torch.cuda.synchronize()
 
 

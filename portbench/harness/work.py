@@ -23,6 +23,11 @@ SLAB_OPS, TRI_OPS = 25, 59
 # and root-box test, its transform interpolated; the winning triangle again
 SPHERE_OPS, MOTION_SPHERE_OPS, PLANE_OPS = 37, 12, 21
 INSTANCE_OPS, MOTION_INSTANCE_OPS, REFIT_OPS = 115, 37, 66
+# the shortlist rounds (csrc/bvh.cu K6c / K6a): an instance record (24
+# f32); a ray's bytes besides its origin and direction (24 B) and its time:
+# K6c its best t in, (t f32, tri i32, inst i64) out; K6a its tmax and
+# occlusion byte in, the byte out
+INSTANCE_RECORD_BYTES, ROUNDS_CLOSEST_RAY, ROUNDS_ANY_RAY = 96, 4 + 16, 4 + 1 + 1
 
 
 def bound_ms(work) -> float:
@@ -46,6 +51,18 @@ def sweep_work(lay, table_floats: int, stats: dict, closest: bool):
            + stats.get("moving_instance_tests", 0) * (INSTANCE_OPS + MOTION_INSTANCE_OPS)
            + stats.get("tri_tests", 0) * TRI_OPS + stats.get("refits", 0) * REFIT_OPS)
     return nbytes, ops
+
+
+def rounds_bound_ms(rays: int, instances: int, motion: bool, closest: bool) -> float:
+    """The bound of one K6c / K6a launch (the shortlist rounds): the bytes
+    that any implementation of the launch moves at the HBM rate. In: each
+    ray's world origin and direction, its time where the batch moves, and
+    its best t (K6c) or its tmax and occlusion byte (K6a); out: (t, tri,
+    inst) or the occlusion byte; the instance table read once. No node, box
+    or triangle test is counted, so the bound is the same work whatever
+    algorithm walks the instances."""
+    per_ray = 24 + (4 if motion else 0) + (ROUNDS_CLOSEST_RAY if closest else ROUNDS_ANY_RAY)
+    return bound_ms((rays * per_ray + instances * INSTANCE_RECORD_BYTES, 0))
 
 
 def bvh_work(stats, lanes: int, per_lane: bool, out_bytes: int, culled: int = 0):

@@ -1,6 +1,7 @@
 """The share of a pass spent in the trace layer: the summed CUDA-event
-spans around ``integrator.trace_closest`` and ``lights.trace_any`` over the
-event spans of the passes that hold them, in %."""
+spans around ``integrator.trace_closest``, ``lights.trace_any`` and
+``lights.trace_closest`` (``harness/trace.py::trace_spans``) over the event
+spans of the passes that hold them, in %."""
 
 
 def read(t):

@@ -1,5 +1,6 @@
-"""The batch of big-mesh instances that a trace call walks together (at
-most ``render/trace.py::INSTANCE_TOPK_MIN`` of them): the instances'
+"""The batch of big-mesh instances that a trace call walks together (above
+``render/trace.py::INSTANCE_TOPK_MIN`` of them in chunks of whole
+instances, each chunk a ``Batch`` of its own): the instances'
 primitives, offsets and root boxes (``batch``), and each (instance, ray)
 lane's local ray and root-box entry (``world_inputs``), with the formulas
 the port's kernels hold bit for bit (``accel/sweep.py``)."""

@@ -9,9 +9,12 @@ Two searches, each without gradient:
 * every other mesh primitive joins ONE batch of (instance, ray) lanes with
   per-lane sub-BVH offsets, walked by ``accel/traverse.py`` (the port's
   K3 / K4) after a root-box cull, with the sweep's t as its bound (the
-  local rays and box entries by ``accel/instances.py::world_inputs``). The
-  reference covers at most ``INSTANCE_TOPK_MIN`` big instances: above
-  that the port walks shortlist rounds (K6c / K6a), which no cell runs.
+  local rays and box entries by ``accel/instances.py::world_inputs``).
+  Above ``INSTANCE_TOPK_MIN`` big instances, where the port walks its
+  shortlist rounds (K6c / K6a), the reference still walks every (instance,
+  ray) lane, in chunks of whole instances so that a sampled band fits in
+  memory (``_full_batch_closest``, ``_full_batch_any``): the full batch,
+  which the port's tests hold equal to the rounds bit for bit.
 
 Hits merge in the JAX order (spheres, planes, tiny groups, the big batch)
 with a strict ``<``, so ties keep the earlier primitive. Each search's
@@ -57,6 +60,7 @@ from ..geometry.intersect import INF
 from ..scene.model import MESH, PLANE, SPHERE, SceneFlat, _GatherRows
 
 INSTANCE_TOPK_MIN = 12  # the port walks shortlist rounds above this instance count
+CHUNK_LANES = 1 << 21  # (instance, ray) lanes a walk takes at once above it
 MESH_VERTEX_GRADS = False  # gradients into the pool's vertex and normal
 # planes (its gathers' backward is a scatter-add, MeshPool); off, every
 # read of the planes on a differentiated path is detached
@@ -94,11 +98,69 @@ def _rays(origins, dirs, times):
 
 
 def _batch(scene, dev):
-    tab = plain_instances.batch(scene, dev, STATIC_TRANSFORM_HOIST)
-    if len(tab.prims) > INSTANCE_TOPK_MIN:
-        raise NotImplementedError(f"{len(tab.prims)} big instances: the reference covers "
-                                  f"at most {INSTANCE_TOPK_MIN}")
-    return tab
+    return plain_instances.batch(scene, dev, STATIC_TRANSFORM_HOIST)
+
+
+def _chunks(tab, r: int):
+    """The batch cut into runs of whole instances of at most
+    ``CHUNK_LANES`` (instance, ray) lanes (one instance at the least)."""
+    n = len(tab.prims)
+    step = max(1, CHUNK_LANES // max(r, 1))
+    for a in range(0, n, step):
+        b = min(a + step, n)
+        yield a, dataclasses.replace(
+            tab, prims=tab.prims[a:b], prim_ids=tab.prim_ids[a:b], lower=tab.lower[a:b],
+            upper=tab.upper[a:b], noff=tab.noff[a:b], toff=tab.toff[a:b])
+
+
+@torch.no_grad()
+def _full_batch_closest(scene, tab, o, d, tm, best_t):
+    """(t, tri, inst) of the closest hit over every (instance, ray) lane,
+    walked chunk by chunk; the least t wins, the first instance on a tie,
+    as one walk of the whole batch picks it."""
+    r = o.shape[0]
+    t_b = tri_b = inst_b = None
+    for a, part in _chunks(tab, r):
+        n = len(part.prims)
+        o_l, d_l, tn = plain_instances.world_inputs(scene, part, o, d, tm, best_t)
+        tmax_i = torch.where(torch.isfinite(tn), best_t[None, :], 0.0).reshape(n * r)
+        t_f, tri_f = plain_walk.intersect_mesh(
+            scene.pool, part.noff.repeat_interleave(r), part.toff.repeat_interleave(r),
+            o_l.reshape(n * r, 3), d_l.reshape(n * r, 3), tmax_i, stack_slots=tab.slots,
+        )
+        del o_l, d_l, tn
+        t_i, tri_i = t_f.reshape(n, r), tri_f.reshape(n, r)
+        t_min = t_i.min(dim=0).values
+        ids = torch.arange(n, dtype=torch.long, device=o.device)[:, None]
+        inst = torch.clamp(torch.where(t_i == t_min[None, :], ids, n).min(dim=0).values,
+                           max=n - 1)
+        tri = torch.where(ids == inst[None, :], tri_i, -1).max(dim=0).values
+        if t_b is None:
+            t_b, tri_b, inst_b = t_min, tri, inst + a
+            continue
+        better = t_min < t_b
+        t_b = torch.where(better, t_min, t_b)
+        tri_b = torch.where(better, tri, tri_b)
+        inst_b = torch.where(better, inst + a, inst_b)
+    return t_b, tri_b, inst_b
+
+
+@torch.no_grad()
+def _full_batch_any(scene, tab, o, d, tm, tmax_r):
+    """(R,) bool: some (instance, ray) lane hit under ``tmax_r``, walked
+    chunk by chunk."""
+    r = o.shape[0]
+    occ = torch.zeros((r,), dtype=torch.bool, device=o.device)
+    for _, part in _chunks(tab, r):
+        n = len(part.prims)
+        o_l, d_l, tn = plain_instances.world_inputs(scene, part, o, d, tm, tmax_r)
+        tm_i = torch.where(torch.isfinite(tn), tmax_r[None, :], 0.0).reshape(n * r)
+        oc = plain_walk.intersect_mesh_any(
+            scene.pool, part.noff.repeat_interleave(r), part.toff.repeat_interleave(r),
+            o_l.reshape(n * r, 3), d_l.reshape(n * r, 3), tm_i, stack_slots=tab.slots,
+        )
+        occ |= oc.reshape(n, r).any(dim=0)
+    return occ
 
 
 def _vertices(pool, gt):
@@ -186,7 +248,9 @@ class BigHits:
 
 def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits:
     """Every big-mesh primitive as ONE batch of (instance, ray) lanes walked
-    by the plain closest-hit walk with ``best_t`` as the bound, then the winning triangle intersected again under autograd
+    by the plain closest-hit walk with ``best_t`` as the bound (above
+    ``INSTANCE_TOPK_MIN`` instances in chunks, ``_full_batch_closest``),
+    then the winning triangle intersected again under autograd
     with the walk's own formula (``tri_refit``) in the winner's frame, taken
     from its transform rows with the search's formulas, so its t is the
     walk's bit for bit. The JAX package takes ``intersect_ray_tri`` there,
@@ -200,22 +264,25 @@ def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits
     # the discrete search for the winning triangle runs without grad
     with torch.no_grad():
         o, d, tm = _rays(origins, dirs, times)
-        o_l, d_l, tn = plain_instances.world_inputs(scene, tab, o, d, tm, best_t)
-        tmax_i = torch.where(torch.isfinite(tn), best_t[None, :], 0.0).reshape(n_inst * r)
-        t_f, tri_f = plain_walk.intersect_mesh(
-            scene.pool, tab.noff.repeat_interleave(r), tab.toff.repeat_interleave(r),
-            o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tmax_i,
-            stack_slots=tab.slots,
-        )
-        del o_l, d_l, tn
-        # local t equals world t (uniform scale folds into |d_l|)
-        t_i = t_f.reshape(n_inst, r)
-        tri_i = tri_f.reshape(n_inst, r)
-        t_min = t_i.min(dim=0).values
-        inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
-        inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
-        inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
-        tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
+        if n_inst > INSTANCE_TOPK_MIN:
+            t_min, tri, inst = _full_batch_closest(scene, tab, o, d, tm, best_t)
+        else:
+            o_l, d_l, tn = plain_instances.world_inputs(scene, tab, o, d, tm, best_t)
+            tmax_i = torch.where(torch.isfinite(tn), best_t[None, :], 0.0).reshape(n_inst * r)
+            t_f, tri_f = plain_walk.intersect_mesh(
+                scene.pool, tab.noff.repeat_interleave(r), tab.toff.repeat_interleave(r),
+                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tmax_i,
+                stack_slots=tab.slots,
+            )
+            del o_l, d_l, tn
+            # local t equals world t (uniform scale folds into |d_l|)
+            t_i = t_f.reshape(n_inst, r)
+            tri_i = tri_f.reshape(n_inst, r)
+            t_min = t_i.min(dim=0).values
+            inst_ids = torch.arange(n_inst, dtype=torch.long, device=dev)[:, None]
+            inst = torch.where(t_i == t_min[None, :], inst_ids, n_inst)
+            inst = torch.clamp(inst.min(dim=0).values, max=n_inst - 1)
+            tri = torch.where(inst_ids == inst[None, :], tri_i, -1).max(dim=0).values
         hit = torch.isfinite(t_min) & (t_min < best_t)
 
     # the winner's transform rows (gradient to the winning row only: the
@@ -287,6 +354,8 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
         n_inst = len(tab.prims)
         # already-occluded rays get tmax 0 -> no hit in any frame
         tmax_r = torch.where(occ, 0.0, tmax)
+        if n_inst > INSTANCE_TOPK_MIN:
+            return occ | _full_batch_any(scene, tab, o, d, tm, tmax_r)
         o_l, d_l, tn = plain_instances.world_inputs(scene, tab, o, d, tm, tmax_r)
         tm_i = torch.where(torch.isfinite(tn), tmax_r[None, :], 0.0).reshape(n_inst * r)
         oc = plain_walk.intersect_mesh_any(

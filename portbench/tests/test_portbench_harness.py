@@ -213,7 +213,7 @@ def test_benchmark_json_keeps_the_contract():
         assert "assumed" in cfg
     cells = {w["name"]: w for w in BENCH["workloads"]}
     assert list(cells) == ["cornell.render", "ajaxenv.render", "cornell.viewer",
-                           "ajaxenv.render.4gpu"]
+                           "ajaxenv.render.4gpu", "cornell.render.closest_shadow"]
     assert sum(w["chips"] == 4 for w in cells.values()) <= max(1, len(cells) // 4)
     for w in cells.values():
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
@@ -268,6 +268,49 @@ def test_traced_run_reads_layers_on_cpu():
     assert "idle_share.render" not in out["metrics"]
     assert {"busy_s", "window_s"} <= set(out["device"])
 
+
+
+@pytest.mark.parametrize("cell_name", ["cornell.render", "cornell.render.closest_shadow"])
+def test_trace_spans_hold_every_trace_call(cell_name, monkeypatch):
+    """Every trace call of a pass, the shadow rays of both estimators with
+    them, lies between the two events of a span of ``trace_spans``; only
+    the closest-hit estimator traces shadow rays by ``lights.trace_closest``."""
+    import reference.side as ref
+    from harness import port
+    from harness import trace as tracing
+    from harness.switches import set_both
+
+    log = []
+
+    class Event:
+        def __init__(self, **kw):
+            pass
+
+        def record(self):
+            log.append("event")
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    monkeypatch.setattr(tracing.torch.cuda, "Event", Event)
+    monkeypatch.setattr(tracing.torch.cuda, "synchronize", lambda *a: None)
+    cell = small(cell_name)
+    set_both(port, ref, cell.config.get("switches"))
+    loop = LOOPS["accumulate"](port, cell, 5, CPU, SMALL)
+    for mod, name in [(port.integrator, "trace_closest"), (port.lights, "trace_any"),
+                      (port.lights, "trace_closest")]:
+        def counted(*a, _fn=getattr(mod, name), _call=f"{mod.__name__}.{name}", **k):
+            log.append(_call)
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    t = tracing.Trace(loop.unit)
+    with tracing.trace_spans(port, t):
+        loop.iterate()
+    calls = [i for i, e in enumerate(log) if e != "event"]
+    assert calls and t.trace_ms == [float(len(calls))]
+    assert all(log[i - 1] == log[i + 1] == "event" for i in calls)
+    shadow = log.count(f"{port.lights.__name__}.trace_closest")
+    assert (shadow > 0) == ("switches" in cell.config)
 
 def test_no_card_no_result():
     """Without a CUDA device the command prints no result and exits with

@@ -152,6 +152,37 @@ def test_four_card_cell_starts_a_rank_a_card(monkeypatch):
                                    1200.0 + 51 + 600.0, 12.5)]
 
 
+def test_launcher_starts_the_ranks_without_torch():
+    """The launcher of a four-card cell imports neither torch nor CUDA
+    before it starts the ranks (each rank imports its own)."""
+    code = ("import sys; sys.path[:0] = sys.argv[1:3]; import harness.cli as cli, "
+            "harness.standins as st; st.scene_file = lambda cfg: None; "
+            "cli.launched = lambda *a: print(sorted({m.split('.')[0] for m in sys.modules} "
+            "& {'torch', 'tinsel_tpu_torch', 'reference'})) or 0; "
+            "sys.exit(cli.main(sys.argv[3:], 0.0))")
+    out = subprocess.run([sys.executable, "-c", code, str(HERE), str(HERE.parent),
+                          "--workload", CELL, "--seed", "1", "--seconds", "1"],
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_rank_without_enough_cards_ends_the_run(monkeypatch, capsys):
+    """A rank that sees fewer cards than the cell asks for exits with
+    another code than 0 before it runs anything."""
+    import harness.run_cell
+
+    for k, v in dict(PORTBENCH_RENDEZVOUS="file:///nowhere", PORTBENCH_RESULT="/nowhere",
+                     PORTBENCH_T0="0.0", PORTBENCH_LAUNCHER=str(os.getppid()), RANK="1",
+                     LOCAL_RANK="1", WORLD_SIZE="4").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr("harness.launch.watch_launcher", lambda env: None)
+    monkeypatch.setattr(harness.run_cell, "run_rank", lambda *a, **k: pytest.fail("ran"))
+    assert cli.main(["--workload", CELL, "--seed", "1", "--seconds", "1"], 0.0) == 3
+    assert "needs 4 CUDA device(s); 3 visible" in capsys.readouterr().err
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
