@@ -7,7 +7,8 @@ Phases, each fatal on failure (exit code 1):
 
 1. the card: device name and ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``tinsel_tpu_torch/csrc`` (``nlm.cu``,
-   ``bvh.cu`` with K3, K4, K7, K6c and K6a, ``sweep.cu``; nvcc, sm_90a)
+   ``bvh.cu`` with K3, K4, K7, K6c, K6a and K10, ``sweep.cu``; nvcc,
+   sm_90a)
    and the BVH builder
    ``native/bvh_builder.cpp`` (g++), one compiler each, all at once;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -109,7 +110,17 @@ Phases, each fatal on failure (exit code 1):
     ms and its bound (``rounds_work``: the world rays in and the results
     out, the instance table, the box tests and the plain rounds' own
     walks); many_mesh's whole bounce-0 trace_closest and trace_any calls
-    under the profiler, with the memory each allocates at its peak;
+    under the profiler, with the memory each allocates at its peak; then
+    K10, the frames of the batch of at most INSTANCE_TOPK_MIN big
+    instances (``frames_phase``): the first call of each form (closest
+    hit; any hit) of a 512x512 4-spp pass of the probe-lit envmesh (one
+    instance) and of ``many_mesh_scene(18)`` (12 big instances), each
+    against the plain version on the same inputs, every output bit for
+    bit, timed by CUDA events behind a spin kernel against its byte bound
+    (``frames_bytes``) beside the plain version's ms. On every path of
+    1 to 12 big instances (phases 7, 9, 11 and 12) one K10 launch comes
+    ahead of each K3 / K4 launch (``frames_per_walk``), and none where
+    K6 walks;
 11. scene files: every scene file of the repository that needs no asset
     from outside it, loaded through the port (``load_tin`` /
     ``load_tungsten``, mesh cache cold), flattened on the card and
@@ -1457,6 +1468,7 @@ def bigmesh_path(ops_bvh, dev):
         if name == "envmesh":
             if got["rounds_closest"] or got["rounds_any"]:
                 fail(f"big-mesh path: envmesh (one mesh) launched K6: {got}")
+            frames_per_walk(got, "big-mesh path: envmesh")
             continue
         flat, cam = flats[name]
         outs = {}
@@ -1467,7 +1479,7 @@ def bigmesh_path(ops_bvh, dev):
                                       flat, cam, PathUniforms(0, dev)), outs)
         held[name] = hold_rounds(calls, outs)
         del calls, outs
-        want = {"bvh_closest": 0, "bvh_any": 0,
+        want = {"bvh_closest": 0, "bvh_any": 0, "bvh_frames": 0,
                 **{k: per_scene[name]["passes"] * held[name][k]["calls"]
                    for k in ("rounds_closest", "rounds_any")}}
         per_scene[name]["k6_held"] = held[name]
@@ -1906,6 +1918,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.render.renderer import make_accumulate_fn, render
 
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.ops import nee as ops_nee
 
     sc = probe_scene()
@@ -1918,6 +1931,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     ops_bvh.reset_launch_counts()
     ops_nlm.reset_launch_counts()
     ops_nee.reset_launch_counts()
+    ops_instances.reset_launch_counts()
     t1 = time.perf_counter()
     accum = torch.zeros((BIG_H, BIG_W, 4), device=dev)
     source = PathUniforms(0, dev)
@@ -1931,6 +1945,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
     t_all = time.perf_counter() - t1
     launches = {"bvh_closest": ops_bvh.launch_counts["bvh_closest"],
                 "bvh_any": ops_bvh.launch_counts["bvh_any"],
+                "bvh_frames": ops_instances.launch_counts["bvh_frames"],
                 "nlm_filter": ops_nlm.launch_counts["nlm_filter"],
                 "nee_shade": ops_nee.launch_counts["nee_shade"]}
     if ops_nee.launch_counts["nee_light"] != 0:  # the probe is the scene's one light
@@ -1940,6 +1955,7 @@ def probe_path(ops_nlm, ops_bvh, dev, per_scene_envmesh):
         fail(f"probe path: the image is not finite or is black (mean {mean})")
     if min(launches.values()) < 1:
         fail(f"probe path: a kernel was never launched: {launches}")
+    frames_per_walk(launches, "probe path")
     rays = BIG_W * BIG_H * 4 * 2 * spp  # camera/bounce ray + probe shadow ray per bounce
     pass_ms = secs * 1e3 / (spp // spp_pass)
     emit(dict(phase="probe_path", scene=f"envmesh probe {BIG_W}x{BIG_H} d4", spp=spp,
@@ -2569,7 +2585,7 @@ def trace_ops_phase(dev, per_scene):
             calls = capture_calls(targets, lambda: run(flat, cam, src), outs)
         held = held_all[name] = hold_rounds(calls, outs)
         del outs
-        want = {"bvh_closest": 0, "bvh_any": 0,
+        want = {"bvh_closest": 0, "bvh_any": 0, "bvh_frames": 0,
                 **{k: held[k]["calls"] for k in ("rounds_closest", "rounds_any")}}
         emit(dict(phase="k6_pass", scene=f"{name} {BIG_W}x{BIG_H} d{depth} {spp}spp",
                   pass_ms=pass_ms, ms_per_spp=pass_ms / spp,
@@ -2593,6 +2609,123 @@ def trace_ops_phase(dev, per_scene):
                 recs[kind].append(rec)
         del calls
     return recs, held_all, launches
+
+# ----------------------------------------------------------- K10: frames
+
+FRAMES_REPS = 50  # K10 launches timed a call (a median of them)
+
+
+def frames_per_walk(launches: dict, what: str, some: bool = True):
+    """Scenes of at most INSTANCE_TOPK_MIN big instances: one K10 launch
+    ahead of each K3 / K4 launch; with ``some``, at least one."""
+    walks = launches["bvh_closest"] + launches["bvh_any"]
+    if launches["bvh_frames"] != walks or (some and not walks):
+        fail(f"{what}: {launches['bvh_frames']} K10 launches for {walks} K3 / K4 launches")
+
+
+def frames_args(args):
+    """A captured ``ops/instances.py::frames`` call's arguments as the
+    kernel takes them (``frames``' own broadcast of times and tmax): (scene,
+    table, origins, dirs, times, tmax, occ or None)."""
+    scene, tab, o, d, times, tmax, *occ = args
+    r = o.shape[0]
+    times, tmax = (torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32, device=o.device),
+                                      (r,)).contiguous() for x in (times, tmax))
+    return scene, tab, o.contiguous(), d.contiguous(), times, tmax, occ[0] if occ else None
+
+
+def frames_bytes(tab, rays: int, occ) -> int:
+    """Device-memory bytes of one K10 launch: a ray's origin, direction and
+    bound in (28 B), its time where the table moves (4 B), its occlusion
+    flag in the any-hit form (1 B); a lane's local origin and direction,
+    bound and two offsets out (36 B) for each of the I instances; the
+    instance table once."""
+    per_ray = 28 + (4 if tab.motion else 0) + (1 if occ is not None else 0)
+    return rays * (per_ray + 36 * len(tab.prims)) + tab.table.numel() * 4
+
+
+def spun_ms(fn, arg_sets, reps: int = FRAMES_REPS) -> float:
+    """Median device ms of one ``fn`` call: CUDA events around it behind a
+    spin kernel, so the card is still busy when the host reaches the
+    launch and the pair times the kernel, not the host's dispatch; the
+    calls cycle through ``arg_sets``, the first one a warm-up."""
+    spans = []
+    for i in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for e in (start, end):  # created (at their first record) before the spin
+            e.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in spans[1:])
+
+
+def same_bits(a, b) -> bool:
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def frames_phase(dev) -> list:
+    """K10 on the main path's inputs: the first ``ops/instances.py::
+    frames`` call of each form (closest hit; any hit, with the occluded
+    rays) in one 512x512 4-spp pass (1M rays) of the probe-lit envmesh
+    (one big instance) and of ``many_mesh_scene(18)`` (12 spheres and
+    capsules: the batch's most, INSTANCE_TOPK_MIN). Each held against the
+    plain version (``accel/instances.py::frames``) on the same inputs,
+    every output bit for bit, with one counted launch; K10's device ms
+    (``spun_ms``) against its byte bound (``frames_bytes``), beside the
+    plain version's ms (CUDA events, ``call_ms``). Returns the records."""
+    from tinsel_tpu_torch.accel import instances as plain_instances
+    from tinsel_tpu_torch.core.sampling import PathUniforms
+    from tinsel_tpu_torch.ops import instances as ops_instances
+    from tinsel_tpu_torch.render.camera import CameraParams
+    from tinsel_tpu_torch.render.renderer import make_render_pass
+    from tinsel_tpu_torch.scene.presets import many_mesh_scene
+
+    recs = []
+    for tag, sc in (("envmesh probe", probe_scene()),
+                    ("many_mesh 18", many_mesh_scene(18, BIG_W, BIG_H, 2))):
+        flat, cam = sc.flatten(dev), CameraParams.from_host(sc.camera, dev)
+        run = make_render_pass(sc.options, spp_per_pass(4))
+        with torch.no_grad():
+            calls = capture_calls(((ops_instances, "frames"),),
+                                  lambda: run(flat, cam, PathUniforms(11, dev)))["frames"]
+            for form in ("closest", "any"):
+                found = [frames_args(a) for a, _ in calls if (len(a) > 6) == (form == "any")]
+                if not found:
+                    fail(f"K10 {tag}: no {form}-hit frames call in a pass")
+                scene, tab, o, d, times, tmax, occ = args = found[0]
+                r, n_inst = o.shape[0], len(tab.prims)
+                before = ops_instances.launch_counts["bvh_frames"]
+                got = ops_instances.frames_cuda(*args)
+                want = plain_instances.frames(*args)
+                torch.cuda.synchronize()
+                if ops_instances.launch_counts["bvh_frames"] != before + 1:
+                    fail(f"K10 {tag} {form}: the wrapper did not count its one launch")
+                differ = [k for k, g, w in zip(want._fields, got, want) if not same_bits(g, w)]
+                nbytes = frames_bytes(tab, r, occ)
+                tensors = [t for t in (o, d, times, tmax, occ) if t is not None]
+                sets = [(scene, tab, *c) for c in copies(tensors, nbytes)]
+                kernel_ms = spun_ms(ops_instances.frames_cuda, sets)
+                plain_ms = call_ms(plain_instances.frames, sets)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                rec = dict(phase="frames", kernel="bvh_frames", form=form,
+                           shape=f"{tag}, {r} rays x {n_inst} instances", instances=n_inst,
+                           rays=r, moving=bool(tab.motion), outputs_differing=differ,
+                           max_abs_err=0.0, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                           bytes_per_ray=nbytes / r, bound_ms=bound_ms, bound_by="bytes",
+                           bound_share=bound_ms / kernel_ms, launches=1, library_ms=None)
+                emit(rec)
+                if differ:
+                    fail(f"K10 {tag} {form}: {differ} differ from the plain version")
+                recs.append(rec)
+                del got, want, sets, found, args
+        del calls
+    return recs
 
 
 def peak_alloc_mib(call) -> float:
@@ -2712,7 +2845,7 @@ def scene_files_phase(ops_bvh, dev):
 
     ops_bvh.reset_launch_counts()
     ops_instances.reset_launch_counts()
-    kinds = ("bvh_closest", "bvh_any", "rounds_closest", "rounds_any")
+    kinds = ("bvh_closest", "bvh_any", "rounds_closest", "rounds_any", "bvh_frames")
     per = {}
     for name, (sc, flat, cam, load_s, flatten_s) in loaded.items():
         before = {**ops_bvh.launch_counts, **ops_instances.launch_counts}
@@ -2735,6 +2868,9 @@ def scene_files_phase(ops_bvh, dev):
     if launches["rounds_closest"] or launches["rounds_any"]:
         fail(f"scene files: K6 launched, but no file has more than INSTANCE_TOPK_MIN big "
              f"meshes: {launches}")
+    for name, rec in per.items():
+        frames_per_walk(rec["launches"], f"scene file {name}", some=False)
+    frames_per_walk(launches, "scene files")
     equal_draws_small(loaded["veach_mis.json"][0], 64, 64, 4, "veach_mis.json 64x64 d4 1spp", dev)
     return launches
 
@@ -2838,10 +2974,11 @@ def flats_equal(a, b) -> bool:
 def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
     """scenes/ajaxenv.tin with stand-ins for its two assets (written into
     ``tmp``), through the port's loaders at real size; see the module
-    docstring, item 12. Returns the render's K3/K4 launches."""
+    docstring, item 12. Returns the render's K3/K4 and K10 launches."""
     from tinsel_tpu_torch.accel.build import build_wide_bvh
     from tinsel_tpu_torch.core.color import resolve
     from tinsel_tpu_torch.io.hdr import load_hdr
+    from tinsel_tpu_torch.ops import instances as ops_instances
     from tinsel_tpu_torch.render.camera import CameraParams
     from tinsel_tpu_torch.scene.loaders import mesh_io
     from tinsel_tpu_torch.scene.loaders.tin import load_tin
@@ -2921,13 +3058,16 @@ def ajaxenv_files_phase(ops_bvh, dev, tmp: Path):
 
     o = cold.options
     ops_bvh.reset_launch_counts()
+    ops_instances.reset_launch_counts()
     accum, secs, passes = accumulate(cold, flat, cam, SCENE_FILE_SPP, dev)
-    launches = {k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")}
+    launches = {**{k: ops_bvh.launch_counts[k] for k in ("bvh_closest", "bvh_any")},
+                "bvh_frames": ops_instances.launch_counts["bvh_frames"]}
     mean = float(resolve(accum).mean())
     if not bool(torch.isfinite(accum).all()) or not mean > 0:
         fail(f"ajaxenv stand-in: the image is not finite or is black (mean {mean})")
     if min(launches.values()) < 1:
         fail(f"ajaxenv stand-in: a BVH kernel was never launched: {launches}")
+    frames_per_walk(launches, "ajaxenv stand-in")
     pass_ms = secs * 1e3 / passes
     emit(dict(phase="ajaxenv_files", scene=f"ajaxenv {o.width}x{o.height} d{o.max_depth}",
               spp=SCENE_FILE_SPP, passes=passes, render_s=secs,
@@ -4105,7 +4245,7 @@ def closest_shadow_part(ops_nlm, ops_bvh, dev) -> tuple:
         trace._instance_rounds = orig_rounds
     held = hold_rounds(calls, outs)
     mm_want = {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0, "rounds_closest": 2 * 2,
-               "rounds_any": 0}
+               "rounds_any": 0, "bvh_frames": 0}
     emit(dict(phase="closest_shadow_many_mesh", scene=f"many_mesh 48 {BIG_W}x{BIG_H} d2 "
               f"{spp_per_pass(4)}spp pass", launches=mm_launches, expected=mm_want,
               instance_rounds_calls=rounds["n"], k6c_held=held["rounds_closest"]))
@@ -4395,6 +4535,7 @@ def main():
     integrator_equal_draw_phase(dev)
     probe_launches = probe_path(ops_nlm, ops_bvh, dev, per_scene["envmesh"])
     k6, k6_held, k6_launches = trace_ops_phase(dev, per_scene)
+    frames = frames_phase(dev)
 
     from tinsel_tpu_torch.scene.loaders import mesh_io
 
@@ -4412,6 +4553,8 @@ def main():
         launches[k] = (big_launches[k] + probe_launches[k] + file_launches[k]
                        + ajax_launches[k])
     launches["bvh_steps"] = probe_launches["bvh_steps"]
+    launches["bvh_frames"] = (big_launches["bvh_frames"] + probe_launches["bvh_frames"]
+                              + file_launches["bvh_frames"] + ajax_launches["bvh_frames"])
     for k in K6_NAMES:
         launches[k] = big_launches[k] + k6_launches[k] + file_launches[k]
     launches["nee_shade"] += probe_launches["nee_shade"]  # the probe's form
@@ -4514,6 +4657,17 @@ def main():
             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
         ))
+    # K10 at the main path's own input: envmesh's first closest-hit call
+    # (1M rays, one instance); every call held was equal bit for bit
+    rec = next(r for r in frames if r["shape"].startswith("envmesh") and r["form"] == "closest")
+    table.append(dict(
+        name="bvh_frames", route="cuda", source="tinsel_tpu_torch/csrc/bvh.cu",
+        replaces="none (no TPU kernel: accel/instances.py::world_inputs' eager chain; "
+                 "tinsel_tpu/render/trace.py:216 _instance_box_entry and the local rays "
+                 ":434-436 are plain JAX)", launches=launches["bvh_frames"], max_abs_err=0.0,
+        ms=rec["kernel_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], bound_share=rec["bound_share"], library_ms=None,
+    ))
     print(smi, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -427,9 +427,13 @@ def test_big_mesh_render_on_the_card_matches_the_cpu(cuda, name):
     if name in ("instances", "many_mesh"):
         closest, occlusion = (ops_instances.launch_counts[k] for k in ("rounds_closest", "rounds_any"))
         assert ops.launch_counts["bvh_closest"] == ops.launch_counts["bvh_any"] == 0
+        assert ops_instances.launch_counts["bvh_frames"] == 0
     else:
         closest, occlusion = ops.launch_counts["bvh_closest"], ops.launch_counts["bvh_any"]
-        assert ops_instances.launch_counts == {"rounds_closest": 0, "rounds_any": 0}
+        assert ops_instances.launch_counts["rounds_closest"] == 0
+        assert ops_instances.launch_counts["rounds_any"] == 0
+        # the batch's lanes come from one K10 launch before each walk
+        assert ops_instances.launch_counts["bvh_frames"] == closest + occlusion
     assert closest > 0
     assert (occlusion > 0) == (name in ("many_mesh", "envmesh_probe"))
     b = render(sc, spp=1, device="cpu", source=NumpyUniforms(5, "cpu")).numpy()

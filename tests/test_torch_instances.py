@@ -503,7 +503,7 @@ def test_cpu_tensors_run_the_plain_rounds_and_launch_nothing(name):
         assert torch.equal(a, b) and a.dtype == b.dtype
     assert torch.equal(ttrace._instance_rounds_any(*_world_any_args(c)),
                        plain.rounds_any_world(*_world_any_args(c)))
-    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0}
+    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0, "bvh_frames": 0}
     assert ops_bvh.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
 
 
@@ -564,7 +564,7 @@ def test_kernel_wrappers_refuse_bad_arguments(what):
         ops.rounds_closest_cuda(*_bad(_world_closest_args(c), what))
     with pytest.raises(error, match=match):
         ops.rounds_any_cuda(*_bad(_world_any_args(c), what))
-    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0}
+    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0, "bvh_frames": 0}
 
 
 @pytest.mark.parametrize("name", ["instances16", "many_mesh19"])

@@ -171,7 +171,7 @@ def _assert_equal_plain(closest_args, any_args):
     got = ops.rounds_closest(*closest_args)
     occ = ops.rounds_any(*any_args)
     torch.cuda.synchronize()
-    assert ops.launch_counts == {"rounds_closest": 1, "rounds_any": 1}
+    assert ops.launch_counts == {"rounds_closest": 1, "rounds_any": 1, "bvh_frames": 0}
     assert ops_bvh.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
     want = plain.rounds_closest_world(*closest_args)
     for a, b in zip(got, want):
@@ -281,7 +281,7 @@ def test_no_rays_no_launch(cuda):
     occ = ops.rounds_any(*args[1])
     torch.cuda.synchronize()
     assert t.shape == tri.shape == inst.shape == occ.shape == (0,)
-    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0}
+    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0, "bvh_frames": 0}
 
 
 @pytest.mark.cuda
@@ -301,7 +301,7 @@ def test_one_launch_a_trace_call(cuda, name, monkeypatch):
     hit = trace.trace_closest(flat, o, d, times)
     occ = trace.trace_any(flat, o, d, times, tmax)
     torch.cuda.synchronize()
-    assert ops.launch_counts == {"rounds_closest": 1, "rounds_any": 1}
+    assert ops.launch_counts == {"rounds_closest": 1, "rounds_any": 1, "bvh_frames": 0}
     assert ops_bvh.launch_counts == {"bvh_closest": 0, "bvh_any": 0, "bvh_steps": 0}
     monkeypatch.setattr(ops, "rounds_closest", plain.rounds_closest_world)
     monkeypatch.setattr(ops, "rounds_any", plain.rounds_any_world)
@@ -362,4 +362,4 @@ def test_wrappers_refuse_bad_arguments(cuda, what):
     for fn, a in ((ops.rounds_closest, args[0]), (ops.rounds_any, args[1])):
         with pytest.raises((TypeError, ValueError)):
             fn(*_bad(a, what, cuda))
-    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0}
+    assert ops.launch_counts == {"rounds_closest": 0, "rounds_any": 0, "bvh_frames": 0}

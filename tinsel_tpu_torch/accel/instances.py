@@ -14,9 +14,16 @@ rays with the kernels' component formulas (``world_inputs``) and call
 them. Each round's walks go through ``ops/bvh.py`` (K3 / K4 on the card,
 the plain walks on the CPU), with one host sync a round for the loop's
 test.
+
+At most ``INSTANCE_TOPK_MIN`` big instances, a trace call walks every
+(instance, ray) lane instead: ``frames`` builds those lanes' local rays,
+bounds and sub-BVH offsets from ``world_inputs``, the plain version of
+kernel K10 (``ops/instances.py::frames``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -135,3 +142,35 @@ def rounds_any_world(scene, tab, origins, dirs, times, tmax, occ):
     (R,) is 0 where a ray is already occluded. Returns (R,) bool."""
     o_l, d_l, tn = world_inputs(scene, tab, origins, dirs, times, tmax)
     return rounds_any(scene, o_l, d_l, tn, tmax, occ, tab.noff, tab.toff, tab.slots)
+
+
+class Frames(NamedTuple):
+    """The (instance, ray) lanes of the batch, instance-major (lane
+    i R + r), as kernels K3 / K4 take them."""
+
+    origins: torch.Tensor  # (I R, 3) f32, the ray in instance i's frame
+    dirs: torch.Tensor  # (I R, 3) f32
+    tmax: torch.Tensor  # (I R,) f32, the ray's bound where the root box may be hit, else 0
+    noff: torch.Tensor  # (I R,) int32, instance i's node offset
+    toff: torch.Tensor  # (I R,) int32, instance i's triangle offset
+
+
+def lane_offsets(off, r: int):
+    """(I,) offsets -> (I R,) per lane, instance-major (contiguous, as the
+    kernels take them)."""
+    return off.repeat_interleave(r)
+
+
+def frames(scene, tab, origins, dirs, times, tmax, occ=None) -> Frames:
+    """The batch's lanes from world rays (R, 3), times and tmax (R,): the
+    plain version of kernel K10. ``world_inputs``' local rays, each lane's
+    tmax the ray's where its root-box entry is finite, else 0, and the
+    table's offsets per lane. With ``occ`` (R,) bool, the occlusion form:
+    an occluded ray's tmax counts as 0."""
+    n, r = len(tab.prims), origins.shape[0]
+    if occ is not None:
+        tmax = torch.where(occ, 0.0, tmax)
+    o_l, d_l, tn = world_inputs(scene, tab, origins, dirs, times, tmax)
+    tm = torch.where(torch.isfinite(tn), tmax[None, :], 0.0)
+    return Frames(o_l.reshape(n * r, 3), d_l.reshape(n * r, 3), tm.reshape(n * r),
+                  lane_offsets(tab.noff, r), lane_offsets(tab.toff, r))

@@ -1,7 +1,9 @@
 // Wide-BVH walks for Hopper (sm_90a): kernels K3 (closest hit), K4 (any
 // hit with t < tmax), K7 (the closest-hit walk's step count), and K6c /
 // K6a (the instance shortlist rounds, closest hit and occlusion, which
-// walk with the same code; their note is above bvh_rounds_closest_kernel).
+// walk with the same code; their note is above bvh_rounds_closest_kernel),
+// and K10 (the frames of the batch of at most 12 big instances, the local
+// rays K3 / K4 walk there; its note is above bvh_frames_kernel).
 //
 // Replaces: tinsel_tpu/accel/traverse.py:761 intersect_mesh (its walk
 // _run_tiled :635 / _traverse_tile :491 / _step :390), :903
@@ -692,6 +694,80 @@ Kernel by_kept(int kept, Kernel k0, Kernel k1, Kernel k2, Kernel k4, Kernel k8) 
   }
 }
 
+// ---------------------------------------------------------------- K10
+//
+// K10: the frames of the batch of at most 12 big instances
+// (render/trace.py::INSTANCE_TOPK_MIN): each (instance, ray) lane's local
+// ray, its bound and its sub-BVH offsets, which K3 / K4 then walk (plain
+// version: tinsel_tpu_torch/accel/instances.py::frames, that is
+// world_inputs, the rule tmax -> 0 where the root box is missed, and the
+// per-lane offsets). It replaces no TPU kernel: it replaces world_inputs'
+// chain of some 128 eager torch ops a trace call, whose JAX counterparts
+// are tinsel_tpu/render/trace.py:216 _instance_box_entry and the local
+// rays of :434-436 (plain JAX there).
+//
+// What bounds it on this card: bytes. A lane reads its ray (24 B, 4 more
+// for the time where the batch moves), its bound (4 B, and the occlusion
+// byte of the any-hit form) and writes 36 B: the local origin and
+// direction (24 B), the lane's tmax and its two offsets (12 B). The
+// instance records (96 B each) are read by every lane of a block from one
+// address, so they stay in L1. The arithmetic, some 115 f32 operations
+// a lane (150 where the batch moves) with nine IEEE divisions, takes about
+// a third of the bytes' time at the card's f32 rate, so bytes bound it: at
+// 1M lanes of one instance 64-69 MB at 3.35 TB/s, about 0.02 ms. K3 / K4
+// keep their inputs as they were (the walk's bound in the benchmark reads
+// those arguments), so the local rays make a round trip through device
+// memory rather than being computed inside the walk.
+//
+// The design: one thread a lane, a row of blocks per instance (blockIdx.y
+// is the instance, so a block reads one record), lanes instance-major
+// (lane i R + r), as K3 / K4 take them. The frame, the local ray and the
+// root-box test are frame.cuh's functions through to_local / box_entry,
+// the formulas K5 and K6 hold bit for bit against accel/sweep.py under
+// -fmad=false. The lane's tmax is the ray's bound where the box may be hit
+// before it, else 0 (+0.0, as torch.where writes it); the any-hit form
+// takes an occluded ray's bound as 0 first.
+
+constexpr int FRAME_THREADS = 256;  // threads a block of K10
+
+__global__ void __launch_bounds__(FRAME_THREADS)
+bvh_frames_kernel(const float4* __restrict__ tab, const float* __restrict__ origins,
+                  const float* __restrict__ dirs, const float* __restrict__ times,
+                  const float* __restrict__ tmax, const uint8_t* __restrict__ occ, int n,
+                  float* __restrict__ o_out, float* __restrict__ d_out,
+                  float* __restrict__ tmax_out, int* __restrict__ noff_out,
+                  int* __restrict__ toff_out) {
+  const int r = blockIdx.x * FRAME_THREADS + threadIdx.x;
+  if (r >= n) return;
+  const int id = blockIdx.y;
+  const size_t lane = (size_t)id * n + r;
+  const float4* rec = record(tab, id);
+  const World w = load_world(origins, dirs, times, r);
+  float tm = __ldg(tmax + r);
+  if (occ != nullptr && __ldg(occ + r) != 0) tm = 0.0f;
+  V3 o, d;
+  to_local(rec, times != nullptr, w, o, d);
+  const bool may = box_entry(__ldg(rec + 4), __ldg(rec + 5), o, d, tm);
+  float* lo = o_out + 3 * lane;
+  float* ld = d_out + 3 * lane;
+  lo[0] = o.x;
+  lo[1] = o.y;
+  lo[2] = o.z;
+  ld[0] = d.x;
+  ld[1] = d.y;
+  ld[2] = d.z;
+  tmax_out[lane] = may ? tm : 0.0f;
+  noff_out[lane] = __float_as_int(__ldg(&rec[4].w));
+  toff_out[lane] = __float_as_int(__ldg(&rec[5].w));
+}
+
+// The geometry ops/instances.py::frames_geometry computes: a row of
+// ceil(n / FRAME_THREADS) blocks per instance, every lane index below 2^31
+bool frames_ok(int n_inst, int n, int threads, int grid) {
+  return n_inst >= 1 && n_inst <= 65535 && n >= 1 && threads == FRAME_THREADS &&
+         grid == (n + FRAME_THREADS - 1) / FRAME_THREADS && (long long)n_inst * n < (1LL << 31);
+}
+
 }  // namespace
 
 extern "C" int tinsel_bvh_closest(const float* node_rows, const float* block_rows,
@@ -760,5 +836,17 @@ extern "C" int tinsel_bvh_rounds_any(const float* node_rows, const float* block_
   kernel<<<grid, threads, smem, stream>>>(node_rows, block_rows,
                                           reinterpret_cast<const float4*>(tab), origins, dirs,
                                           times, tmax, occ0, n_inst, n, slots, occ_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tinsel_bvh_frames(const float* tab, const float* origins, const float* dirs,
+                                 const float* times, const float* tmax, const uint8_t* occ,
+                                 int n_inst, int n, int threads, int grid, float* o_out,
+                                 float* d_out, float* tmax_out, int* noff_out, int* toff_out,
+                                 cudaStream_t stream) {
+  if (!frames_ok(n_inst, n, threads, grid)) return 9001;
+  bvh_frames_kernel<<<dim3(grid, n_inst), threads, 0, stream>>>(
+      reinterpret_cast<const float4*>(tab), origins, dirs, times, tmax, occ, n, o_out, d_out,
+      tmax_out, noff_out, toff_out);
   return (int)cudaGetLastError();
 }

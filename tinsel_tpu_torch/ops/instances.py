@@ -1,4 +1,5 @@
-"""The instance shortlist rounds as CUDA kernels, and their dispatchers.
+"""The instance shortlist rounds and the batch's frames as CUDA kernels,
+and their dispatchers.
 
 ``rounds_closest`` (kernel K6c, ``csrc/bvh.cu``) and ``rounds_any`` (K6a,
 same source) replace the JAX package's ``jax.lax.while_loop`` of rounds
@@ -18,6 +19,15 @@ group picks the next instance in (entry, id) order. It gives exactly what
 the plain rounds give (``accel/instances.py::rounds_closest_world`` /
 ``rounds_any_world``): every lane equal, t bit for bit (``bvh.cu`` is
 built with ``-fmad=false``); ``csrc/bvh.cu``'s K6 note says why.
+
+``frames`` (kernel K10, same source) serves the batch of at most
+``render/trace.py::INSTANCE_TOPK_MIN`` big instances, where every
+(instance, ray) lane is walked by K3 / K4 (``ops/bvh.py``): it writes each
+lane's local ray, its bound (0 where the root box is missed) and its
+sub-BVH offsets from the world rays and the same table, in one launch in
+place of ``accel/instances.py::world_inputs``' chain of torch ops, which
+stays its plain version (``accel/instances.py::frames``). It replaces no
+TPU kernel; ``csrc/bvh.cu``'s K10 note gives its bound (bytes) and design.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. The rounds return discrete winners and have no gradient:
@@ -40,10 +50,11 @@ from .bvh import _check_layout, _invoke, _on_cpu, launch_geometry
 
 # Launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else.
-launch_counts = {"rounds_closest": 0, "rounds_any": 0}
+launch_counts = {"rounds_closest": 0, "rounds_any": 0, "bvh_frames": 0}
 
 RECORD_FLOATS = 24  # floats of an instance record (csrc/bvh.cu's record())
 TABLES_KEPT = 8  # instance tables cached (scene, device, hoist)
+FRAME_THREADS = 256  # threads a block of K10 (csrc/bvh.cu)
 
 _entries: dict = {}
 _tables: dict = {}
@@ -158,53 +169,69 @@ def _entry(kernel: str):
     if fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(_build.load("bvh"), f"tinsel_bvh_{kernel}")
-        # node_rows, block_rows, table, origins, dirs, times (or NULL),
-        # best t (K6c) or tmax and occ0 (K6a), instances, kept entries,
-        # rays, [top k,] stack slots, threads, rays per block, shared
-        # bytes, grid, out pointers, stream
+        # K6: node_rows, block_rows, table, origins, dirs, times (or
+        # NULL), best t (K6c) or tmax and occ0 (K6a), instances, kept
+        # entries, rays, [top k,] stack slots, threads, rays per block,
+        # shared bytes, grid, out pointers, stream; K10: table, origins,
+        # dirs, times (or NULL), tmax, occ (or NULL), instances, rays,
+        # threads, grid, out pointers, stream
         if kernel == "rounds_closest":
             fn.argtypes = [p] * 7 + [i] * 9 + [p, p, p, p]
-        else:
+        elif kernel == "rounds_any":
             fn.argtypes = [p] * 8 + [i] * 8 + [p, p]
+        else:
+            fn.argtypes = [p] * 6 + [i] * 4 + [p] * 6
         fn.restype = i
         _entries[kernel] = fn
     return fn
 
 
-def _check_args(scene, tab, origins, dirs, times, per_ray):
-    """The arguments both kernels take; per_ray: [(name, tensor, dtype)]
-    of (R,) tensors. Every dtype, shape and contiguity, the stack slots and
-    the sizes are checked before any device, so that each check can be
-    reached with CPU tensors. Returns the launch geometry."""
+def _check_layouts(tab, origins, dirs, times, per_ray, more=()):
+    """Dtype, shape and contiguity of the rays, the per-ray tensors
+    ``per_ray`` [(name, tensor, dtype)] of shape (R,), the table and the
+    tensors ``more`` [(name, tensor, dtype, shape)]. Returns them all as
+    ``more``'s entries, for ``_check_devices``."""
     if origins.dim() != 2:
         raise ValueError(f"origins: expected shape (R, 3), got {tuple(origins.shape)}")
     r = origins.shape[0]
-    pool = scene.pool
-    n_inst = len(tab.prims)
-    n_nodes, n_blocks = pool.node_rows.shape[0], pool.block_rows.shape[0]
     tensors = [("origins", origins, torch.float32, (r, 3)),
                ("dirs", dirs, torch.float32, (r, 3)),
                ("times", times, torch.float32, (r,)),
                *((name, t, dtype, (r,)) for name, t, dtype in per_ray),
-               ("table", tab.table, torch.float32, (n_inst, RECORD_FLOATS)),
-               ("node_rows", pool.node_rows, torch.float32, (n_nodes, NODE_ROW_WIDTH)),
-               ("block_rows", pool.block_rows, torch.float32, (n_blocks, 12 * BLOCK_SIZE))]
+               ("table", tab.table, torch.float32, (len(tab.prims), RECORD_FLOATS)), *more]
     for name, t, dtype, shape in tensors:
         _check_layout(t, name, dtype, shape)
+    return tensors
+
+
+def _check_devices(tensors, dev):
+    for name, t, _, _ in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, the rays on {dev}")
+
+
+def _check_args(scene, tab, origins, dirs, times, per_ray):
+    """The arguments both rounds kernels take; per_ray: [(name, tensor,
+    dtype)] of (R,) tensors. Every dtype, shape and contiguity, the stack
+    slots and the sizes are checked before any device, so that each check
+    can be reached with CPU tensors. Returns the launch geometry."""
+    pool = scene.pool
+    n_nodes, n_blocks = pool.node_rows.shape[0], pool.block_rows.shape[0]
+    tensors = _check_layouts(tab, origins, dirs, times, per_ray, [
+        ("node_rows", pool.node_rows, torch.float32, (n_nodes, NODE_ROW_WIDTH)),
+        ("block_rows", pool.block_rows, torch.float32, (n_blocks, 12 * BLOCK_SIZE))])
+    r = origins.shape[0]
     geo = launch_geometry(r, int(tab.slots))
-    if n_inst < 1:
+    if len(tab.prims) < 1:
         raise ValueError("the rounds need at least one instance")
     if max(n_nodes * NODE_ROW_WIDTH, n_blocks * 12 * BLOCK_SIZE) >= 2**32:
         raise ValueError(f"the kernel addresses rows by 32-bit float offsets; {n_nodes} node "
                          f"rows and {n_blocks} blocks are too many")
     if r >= 2**31:
         raise ValueError(f"{r} rays: the kernel indexes rays by a 32-bit int")
-    dev = origins.device
-    for name, t, _, _ in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-        if t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, the rays on {dev}")
+    _check_devices(tensors, origins.device)
     return geo
 
 
@@ -252,6 +279,65 @@ def rounds_any_cuda(scene, tab, origins, dirs, times, tmax, occ):
                 geo.rays_per_block, geo.smem_bytes, geo.grid)
         _run("rounds_any", args, (out,), dev, r)
     return out
+
+
+def frames_geometry(rays: int) -> tuple:
+    """(threads, blocks) of K10's launch over ``rays`` rays: a row of that
+    many blocks per instance, one thread a lane; 0 blocks for no rays (no
+    launch)."""
+    if rays < 0:
+        raise ValueError(f"rays must be >= 0, got {rays}")
+    return FRAME_THREADS, -(-rays // FRAME_THREADS)
+
+
+def frames_cuda(scene, tab, origins, dirs, times, tmax, occ=None) -> _plain.Frames:
+    """Kernel K10: the batch's lanes, as ``accel/instances.py::frames``.
+    Dtype, shape, contiguity and sizes are checked before any device."""
+    per_ray = [("tmax", tmax, torch.float32)]
+    if occ is not None:
+        per_ray.append(("occ", occ, torch.bool))
+    tensors = _check_layouts(tab, origins, dirs, times, per_ray)
+    n_inst, r = len(tab.prims), origins.shape[0]
+    threads, grid = frames_geometry(r)
+    if not 1 <= n_inst <= 65535:
+        raise ValueError(f"{n_inst} instances: the kernel takes 1 to 65535, one row of blocks "
+                         "each")
+    if n_inst * r >= 2**31:
+        raise ValueError(f"{n_inst} x {r} lanes: the kernel indexes lanes by a 32-bit int")
+    dev = origins.device
+    _check_devices(tensors, dev)
+    n = n_inst * r
+    out = _plain.Frames(torch.empty((n, 3), dtype=torch.float32, device=dev),
+                        torch.empty((n, 3), dtype=torch.float32, device=dev),
+                        torch.empty((n,), dtype=torch.float32, device=dev),
+                        torch.empty((n,), dtype=torch.int32, device=dev),
+                        torch.empty((n,), dtype=torch.int32, device=dev))
+    if grid:
+        args = (tab.table.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
+                times.data_ptr() if tab.motion else None, tmax.data_ptr(),
+                occ.data_ptr() if occ is not None else None, n_inst, r, threads, grid,
+                *(o.data_ptr() for o in out))
+        _invoke(_entry("frames"), args, dev, f"bvh_frames ({n_inst} x {r} lanes)")
+        launch_counts["bvh_frames"] += 1
+    return out
+
+
+def frames(scene, tab, origins, dirs, times, tmax, occ=None) -> _plain.Frames:
+    """The lanes of the batch of at most ``render/trace.py::
+    INSTANCE_TOPK_MIN`` big instances: kernel K10 on CUDA tensors,
+    ``accel/instances.py::frames`` on CPU tensors. tab: the scene's
+    ``InstanceTable``; origins / dirs (R, 3), times and tmax (R,) f32,
+    world space (times and tmax may be scalars: they are broadcast); occ
+    (R,) bool for the occlusion form. Returns ``Frames``: (I R, 3) local
+    origins and directions, (I R,) tmax (0 where the root box is missed or
+    the ray occluded) and int32 node and triangle offsets, instance-major."""
+    r = origins.shape[0]
+    o, d = origins.detach().contiguous(), dirs.detach().contiguous()
+    times, tmax = (torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32, device=o.device),
+                                      (r,)).detach().contiguous() for x in (times, tmax))
+    if _on_cpu(o):
+        return _plain.frames(scene, tab, o, d, times, tmax, occ)
+    return frames_cuda(scene, tab, o, d, times, tmax, occ)
 
 
 def rounds_closest(scene, tab, origins, dirs, times, best_t0):

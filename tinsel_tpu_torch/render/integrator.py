@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..accel.build import BLOCK_SIZE
+from ..accel.instances import lane_offsets
 from ..bsdf.disney import SPECULAR, bsdf_eval, bsdf_sample
 from ..core.color import hsv_to_rgb
 from ..core.math import basis_from_vector, dot, face_forward, lerp
@@ -30,7 +31,7 @@ from ..utils.profiling import count_sync, span
 from .bump import bump_normal
 from .lights import RAY_EPS, K_BSDF_SAMPLES, K_PROBE_SAMPLES, sample_lights
 from .probe import probe_pdf, sky_eval
-from .trace import _lane_offsets, _local_rays, _offsets, trace_closest
+from .trace import _local_rays, _offsets, trace_closest
 
 RR_MIN_Q = 0.05  # survival-probability floor (firefly guard)
 
@@ -250,7 +251,7 @@ def traversal_costs(scene: SceneFlat, origins, dirs, times):
         _, o_l, d_l = _local_rays(scene, big, origins, dirs, times)
         noff, toff, slots = _offsets([scene.prim_static[i].mesh for i in big], origins.device)
         steps = ops_bvh.traversal_steps(
-            scene.pool, _lane_offsets(noff, r), _lane_offsets(toff, r),
+            scene.pool, lane_offsets(noff, r), lane_offsets(toff, r),
             o_l.reshape(-1, 3).contiguous(), d_l.reshape(-1, 3).contiguous(), slots,
         )
         cost = cost + steps.reshape(len(big), r).sum(dim=0)

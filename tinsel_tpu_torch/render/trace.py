@@ -10,14 +10,16 @@ Two searches, each without gradient (the JAX package's ``stop_gradient``):
 * every other mesh primitive joins ONE batch of (instance, ray) lanes with
   per-lane sub-BVH offsets, walked by kernels K3 (closest) and K4 (any
   hit) through ``ops/bvh.py`` after a root-box cull, with the sweep's t as
-  its bound (the local rays and box entries by ``accel/sweep.py``'s
-  component formulas). Above ``INSTANCE_TOPK_MIN`` big instances the batch
-  walks only the ``INSTANCE_TOPK`` nearest-entry instances per ray per
-  round, repeating while some ray's next unvisited box entry still beats
-  its best hit (``_instance_rounds``): kernels K6c / K6a through
-  ``ops/instances.py``, every round of a call in one launch, from the
-  world rays and the scene's instance table (``ops/instances.py::table``):
-  nothing per (instance, ray) pair is built there.
+  its bound (each lane's local ray, bound and offsets written by kernel
+  K10, ``ops/instances.py::frames``, with ``accel/sweep.py``'s component
+  formulas; torch ops on the CPU). Above ``INSTANCE_TOPK_MIN`` big
+  instances the batch walks only the ``INSTANCE_TOPK`` nearest-entry
+  instances per ray per round, repeating while some ray's next unvisited
+  box entry still beats its best hit (``_instance_rounds``): kernels K6c /
+  K6a through ``ops/instances.py``, every round of a call in one launch,
+  from the world rays and the scene's instance table
+  (``ops/instances.py::table``): nothing per (instance, ray) pair is built
+  there.
 
 Hits merge in the JAX order (spheres, planes, tiny groups, the big batch)
 with a strict ``<``, so ties keep the earlier primitive. Each search's
@@ -61,7 +63,6 @@ from ..core.math import (
     quat_rotate,
     safe_normalize,
 )
-from ..accel import instances as plain_instances
 from ..accel.instances import INSTANCE_TOPK  # noqa: F401 (the JAX module's name)
 from ..accel.traverse import tri_refit
 from ..geometry.intersect import INF
@@ -155,12 +156,6 @@ def _offsets(handles, dev):
     noff = torch.tensor([h.node_offset for h in handles], dtype=torch.int32, device=dev)
     toff = torch.tensor([h.tri_offset for h in handles], dtype=torch.int32, device=dev)
     return noff, toff, max(h.stack_slots for h in handles)
-
-
-def _lane_offsets(off, r):
-    """(I,) offsets -> (I * R,) per lane, instance-major (contiguous, as
-    the kernels take them)."""
-    return off.repeat_interleave(r)
 
 
 def _instance_rounds(scene, tab, origins, dirs, times, best_t0):
@@ -264,12 +259,12 @@ class BigHits:
 
 def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits:
     """Every big-mesh primitive as ONE batch of (instance, ray) lanes walked
-    by kernel K3 with ``best_t`` as the bound (above ``INSTANCE_TOPK_MIN``
-    instances the shortlist rounds, K6c, from the world rays: no (I, R)
-    tensor), then the winning triangle intersected again under autograd
-    with the walk's own formula (``tri_refit``) in the winner's frame, taken
-    from its transform rows with the search's formulas, so its t is the
-    walk's bit for bit. The JAX package takes ``intersect_ray_tri`` there,
+    by kernel K3 with ``best_t`` as the bound, the lanes from kernel K10
+    (above ``INSTANCE_TOPK_MIN`` instances the shortlist rounds, K6c, from
+    the world rays: no (I, R) tensor), then the winning triangle intersected
+    again under autograd with the walk's own formula (``tri_refit``) in the
+    winner's frame, taken from its transform rows with the search's
+    formulas, so its t is the walk's bit for bit. The JAX package takes ``intersect_ray_tri`` there,
     which at a seam can miss a triangle that the walk hit, and drops that
     ray."""
     r = origins.shape[0]
@@ -280,13 +275,10 @@ def _big_closest(scene: SceneFlat, lay, origins, dirs, times, best_t) -> BigHits
     # the discrete search for the winning triangle runs without grad
     with torch.no_grad():
         if n_inst <= INSTANCE_TOPK_MIN:
-            o_l, d_l, tn = plain_instances.world_inputs(scene, tab, origins, dirs, times, best_t)
-            tmax_i = torch.where(torch.isfinite(tn), best_t[None, :], 0.0).reshape(n_inst * r)
-            t_f, tri_f = ops_bvh.closest_hit(
-                scene.pool, _lane_offsets(tab.noff, r), _lane_offsets(tab.toff, r),
-                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tmax_i, tab.slots,
-            )
-            del o_l, d_l, tn
+            f = ops_instances.frames(scene, tab, origins, dirs, times, best_t)
+            t_f, tri_f = ops_bvh.closest_hit(scene.pool, f.noff, f.toff, f.origins, f.dirs,
+                                             f.tmax, tab.slots)
+            del f
             # local t equals world t (uniform scale folds into |d_l|)
             t_i = t_f.reshape(n_inst, r)
             tri_i = tri_f.reshape(n_inst, r)
@@ -367,15 +359,12 @@ def trace_any(scene: SceneFlat, origins, dirs, times, tmax):
         tab = ops_instances.table(scene, dev, hoist)
         n_inst = len(tab.prims)
         # already-occluded rays get tmax 0 -> no hit in any frame
-        tmax_r = torch.where(occ, 0.0, tmax)
         if n_inst <= INSTANCE_TOPK_MIN:
-            o_l, d_l, tn = plain_instances.world_inputs(scene, tab, origins, dirs, times, tmax_r)
-            tm = torch.where(torch.isfinite(tn), tmax_r[None, :], 0.0).reshape(n_inst * r)
-            oc = ops_bvh.any_hit(
-                scene.pool, _lane_offsets(tab.noff, r), _lane_offsets(tab.toff, r),
-                o_l.reshape(n_inst * r, 3), d_l.reshape(n_inst * r, 3), tm, tab.slots,
-            )
+            f = ops_instances.frames(scene, tab, origins, dirs, times, tmax, occ)
+            oc = ops_bvh.any_hit(scene.pool, f.noff, f.toff, f.origins, f.dirs, f.tmax,
+                                 tab.slots)
             occ = occ | oc.reshape(n_inst, r).any(dim=0)
         else:
-            occ = _instance_rounds_any(scene, tab, origins, dirs, times, tmax_r, occ)
+            occ = _instance_rounds_any(scene, tab, origins, dirs, times,
+                                       torch.where(occ, 0.0, tmax), occ)
     return occ
